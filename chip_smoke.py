@@ -10,13 +10,20 @@ phase catches an exception:
   1. the card: `nvidia-smi` name and power limit;
   2. build every kernel (one nvcc per source, all started together);
   3. every kernel against its plain PyTorch version on the card: bit-exact
-     at the probe's shape and at small, ragged and misaligned ones; the
-     wrapper's refusal of a bad row count; kernel, plain-version and
-     library-call times beside the bound, and the kernel's time at 2n over
-     its time at n;
+     at the probe's shape and at small, ragged and misaligned ones, and at
+     the DMA kernel's edges (chunks 3, one row per chunk, chunks smaller
+     than a tile and a tile plus 16 bytes, more chunks than the grid
+     holds); its C entry point with the output inside a sentinel-filled
+     buffer, which must stay untouched around it; the kernel's launch
+     plan; the wrapper's refusal of a bad row count; kernel, plain-version
+     and library-call times beside the bound, the kernel's time at 2n
+     over its time at n, and the kernel no faster than `copy_` beyond
+     COPY_NOISE;
   4. the slice: health_labels(extended=True) on cuda:0, with every kernel
-     launch count set to 0 just before and read just after; then each
-     probe's device, wall and enqueue time per iteration;
+     launch count set to 0 just before and read just after, and the
+     `dma-copy-gbps` label no higher than `copy_`'s rate beyond
+     COPY_NOISE; then each probe's device, wall and enqueue time per
+     iteration;
   5. perfmodel's output lines, in the grammar the daemon parses;
   6. the burn-in forward at entry() width, bf16 on the card against the
      port's float32 forward on the host;
@@ -44,6 +51,11 @@ PROBE_SHAPE = health._dma_copy_shape(256, 2)  # health --extended's array
 # reach a few units, where one bf16 ulp is 1.6e-2, and the hidden layer
 # is rounded to bf16 before the second product.
 BURNIN_RTOL, BURNIN_ATOL = 2e-2, 5e-2
+SENTINEL = -21846  # 0xaaaa, the int16 canary around an output
+# A copy that beats the card's own copy_ of the same array by more than
+# this factor is served partly from L2, not HBM: its time and its label
+# would overstate the memory. Runs of one card differ by about 2%.
+COPY_NOISE = 1.03
 
 
 def fail(message):
@@ -110,6 +122,54 @@ def check_dma_copy(x, n, chunks):
     return float((got.float() - want.float()).abs().max())
 
 
+def random_bf16(shape, gen, offset=0):
+    """A bf16 tensor of `shape`, `offset` elements past the start of its
+    (16-byte aligned) allocation."""
+    numel = shape[0] * shape[1]
+    flat = torch.randn(numel + offset, generator=gen, device=DEVICE) * 100
+    return flat.to(torch.bfloat16)[offset:].view(shape)
+
+
+def dma_edge_cases(plan):
+    """(shape, chunks) at the DMA kernel's edges, for its launch plan at
+    the probe's shape: chunks 3; one row per chunk, with more chunks than
+    the grid holds at once; chunks of half a tile, of one tile plus 16
+    bytes and of three tiles plus 16 bytes (16-byte rows), in 2 chunks and
+    in more chunks than the grid holds at once."""
+    tile_rows = plan["tile_bytes"] // 16  # rows of 8 bf16 in one tile
+    # Twice the resident grid: one block per chunk, in two waves.
+    many = 4 * plan["blocks_per_chunk"]
+    cases = [((12, 7), 3), ((768, 1024), 3), ((12, 7), 12),
+             ((512, 1024), 512)]
+    for rows_per in (tile_rows // 2, tile_rows + 1, 3 * tile_rows + 1):
+        cases += [((2 * rows_per, 8), 2), ((many * rows_per, 8), many)]
+    return cases
+
+
+def check_canaries(shape, chunks, n, gen, pad, in_offset, out_offset):
+    """The C entry point on an input `in_offset` and an output
+    `out_offset` elements past a 16-byte boundary, the output inside a
+    buffer of SENTINEL with `pad` elements on each side: the output is the
+    input, and no element around it changed."""
+    numel = shape[0] * shape[1]
+    x = random_bf16(shape, gen, in_offset)
+    buf = torch.full((pad + out_offset + numel + pad,), SENTINEL,
+                     dtype=torch.int16, device=DEVICE)
+    out = buf[pad + out_offset:pad + out_offset + numel]
+    err = dma_copy._kernel()(x.data_ptr(), out.data_ptr(), *shape, chunks, n,
+                             torch.cuda.current_stream(DEVICE).cuda_stream)
+    label = (f"shape {shape} chunks {chunks} n {n} offsets {in_offset}/"
+             f"{out_offset}")
+    require(err == 0, f"tpufd_dma_copy returned CUDA error {err} at {label}")
+    torch.cuda.synchronize()
+    require(torch.equal(out, x.reshape(-1).view(torch.int16)),
+            f"tpufd_dma_copy output is not its input at {label}")
+    require(bool((buf[:pad + out_offset] == SENTINEL).all()),
+            f"tpufd_dma_copy wrote before its output at {label}")
+    require(bool((buf[pad + out_offset + numel:] == SENTINEL).all()),
+            f"tpufd_dma_copy wrote past its output at {label}")
+
+
 def phase_kernel(family):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_err = 0.0
@@ -118,9 +178,30 @@ def phase_kernel(family):
         x = (torch.randn(shape, generator=gen, device=DEVICE) * 100).to(
             torch.bfloat16)
         for chunks in (1, 2, 4):
-            for n in (1, 3):
+            for n in (1, 3) if shape != PROBE_SHAPE else (1, 3, 2):
                 max_err = max(max_err, check_dma_copy(x, n, chunks))
                 cases += 1
+    plan = dma_copy.launch_plan(*PROBE_SHAPE, 2, DEVICE)
+    print(f"[3 kernel] dma_copy launch at {PROBE_SHAPE} in 2 chunks: "
+          f"{plan['threads']} threads per block, {plan['blocks_per_chunk']} "
+          f"blocks per chunk, {plan['resident_per_sm']} resident blocks per "
+          f"SM, tile {plan['tile_bytes']} B, {plan['stages']} stages, "
+          f"{plan['smem_bytes']} B dynamic shared memory per block")
+    edges = dma_edge_cases(plan)
+    for shape, chunks in edges:
+        x = random_bf16(shape, gen)
+        for n in (1, 3):
+            max_err = max(max_err, check_dma_copy(x, n, chunks))
+            cases += 1
+    # A tile's worth of canary elements (two tiles of bytes) on each side.
+    pad = plan["tile_bytes"]
+    canaries = 0
+    for shape, chunks in [(PROBE_SHAPE, 2), *edges]:
+        # Aligned; both 6 bytes off a 16-byte boundary (the head path);
+        # aligned unlike (element by element).
+        for in_offset, out_offset in ((0, 0), (3, 3), (3, 0)):
+            check_canaries(shape, chunks, 2, gen, pad, in_offset, out_offset)
+            canaries += 1
     # Every bf16 bit pattern class, NaN and inf payloads included.
     bits = torch.randint(-32768, 32768, (256, 1024), dtype=torch.int16,
                          device=DEVICE, generator=gen)
@@ -141,7 +222,9 @@ def phase_kernel(family):
         fail("dma_copy accepted 5 rows in 2 chunks")
     print(f"[3 kernel] dma_copy bit-exact against dma_copy_plain in "
           f"{cases + 2} cases (probe shape {PROBE_SHAPE}, small, ragged, "
-          f"misaligned, all bit patterns); rejects rows % chunks != 0")
+          f"misaligned, all bit patterns, {len(edges)} edge shapes); "
+          f"{canaries} canary runs of tpufd_dma_copy untouched around the "
+          f"output; rejects rows % chunks != 0")
 
     x = torch.randn(PROBE_SHAPE, generator=gen, device=DEVICE).to(
         torch.bfloat16)
@@ -166,6 +249,9 @@ def phase_kernel(family):
           f"{bound_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, "
           f"library copy_ {library_ms:.4f} ms; t(2n)/t(n) {ratio:.3f} "
           f"(n {n}: {ms_n:.3f} ms, 2n: {ms_2n:.3f} ms)")
+    require(ms * COPY_NOISE >= library_ms,
+            f"kernel {ms:.4f} ms per repeat beats copy_ {library_ms:.4f} ms "
+            f"by more than {COPY_NOISE}x: repeats are not all from HBM")
     return {"name": "dma_copy", "route": "cuda",
             "source": "tpufd_torch/csrc/dma_copy.cu",
             "replaces": "tpufd/health.py:248", "launches": None,
@@ -198,7 +284,7 @@ def probe_iteration_times(name, fn, n):
           f"{enqueue * 1e3 / n:.4f} ms/iter (n {n})")
 
 
-def phase_slice(family):
+def phase_slice(family, copy_gbps):
     dma_copy.launches = 0
     t0 = time.perf_counter()
     labels = health.health_labels(extended=True, device=DEVICE)
@@ -215,6 +301,10 @@ def phase_slice(family):
                         f"{leaf}{suffix} missing for a {family} card")
     for name, count in launches.items():
         require(count > 0, f"{name} kernel never launched on the main path")
+    dma_gbps = float(labels[PREFIX + "dma-copy-gbps"])
+    require(dma_gbps <= copy_gbps * COPY_NOISE,
+            f"dma-copy-gbps={dma_gbps} beats copy_'s {copy_gbps:.0f} GB/s by "
+            f"more than {COPY_NOISE}x: repeats are not all from HBM")
     registry = metrics.default_registry()
     probe_seconds = {
         leaf: round(registry.histogram(
@@ -277,7 +367,8 @@ def main():
     family = phase_card()
     phase_build()
     kernels = [phase_kernel(family)]
-    launches = phase_slice(family)
+    moved = 2 * PROBE_SHAPE[0] * PROBE_SHAPE[1] * 2  # bf16, read + write
+    launches = phase_slice(family, moved / kernels[0]["library_ms"] / 1e6)
     for kernel in kernels:
         kernel["launches"] = launches[kernel["name"]]
     phase_perfmodel()

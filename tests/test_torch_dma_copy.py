@@ -3,11 +3,13 @@ replaces (tpufd.health._dma_copy_fn, in interpret mode as the JAX
 package's own tests run it), and the wrapper's checks on this CPU-only
 host. The CUDA kernel itself is checked on the card by chip_smoke.py."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
-from tpufd_torch import _build, dma_copy, health
+from tpufd_torch import _build, dma_copy, health, tune_dma_copy
 
 
 def bf16_pair(rows, cols, seed):
@@ -25,12 +27,13 @@ def bits(t):
     return t.view(torch.int16).numpy().view(np.uint16)
 
 
-@pytest.mark.parametrize("chunks", [1, 2, 4])
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4, "rows"])
 @pytest.mark.parametrize("n", [1, 3])
 def test_plain_matches_pallas_bit_exact(cpu_jax, chunks, n):
+    """8 rows per chunk, or ("rows") one row per chunk in 8 chunks."""
     from tpufd import health as ref
 
-    rows = 8 * chunks
+    rows, chunks = (8, 8) if chunks == "rows" else (8 * chunks, chunks)
     x_jax, x_torch = bf16_pair(rows, 1024, seed=10 * chunks + n)
     want = ref._dma_copy_fn(rows, 1024, chunks, True)(
         x_jax, cpu_jax.numpy.int32(n))
@@ -40,6 +43,21 @@ def test_plain_matches_pallas_bit_exact(cpu_jax, chunks, n):
     # The wrapper takes the plain version for a CPU tensor, and only that.
     np.testing.assert_array_equal(bits(dma_copy.dma_copy(x_torch, n, chunks)),
                                   bits(got))
+
+
+@pytest.mark.parametrize("rows, cols, chunks", [
+    (12, 7, 3), (12, 7, 12), (24, 8, 2), (6, 9, 6)])
+def test_plain_matches_pallas_at_ragged_shapes(cpu_jax, rows, cols, chunks):
+    """The shapes of the kernel's edges on the card: rows of 7 and 9
+    elements, whose chunks start off a 16-byte boundary, one row per
+    chunk, and 16-byte rows."""
+    from tpufd import health as ref
+
+    x_jax, x_torch = bf16_pair(rows, cols, seed=rows * cols + chunks)
+    want = ref._dma_copy_fn(rows, cols, chunks, True)(
+        x_jax, cpu_jax.numpy.int32(2))
+    np.testing.assert_array_equal(bits(dma_copy.dma_copy(x_torch, 2, chunks)),
+                                  np.asarray(want).view(np.uint16))
 
 
 def test_cpu_path_is_not_counted_as_a_launch():
@@ -87,6 +105,40 @@ def test_build_targets_hopper(tmp_path):
     cmd = _build.nvcc_command("dma_copy", tmp_path / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and cmd[-1].endswith("csrc/dma_copy.cu")
+
+
+def test_shipped_kernel_is_the_first_tuning_candidate():
+    """The tuning script times the shipped tile, stages and stores in
+    flight first, so PERF.md's winner is what the library builds; every
+    candidate passes the source's static_asserts (a tile a multiple of 128
+    bytes under one barrier phase's 2^20, a stage to store from and one to
+    load into, the ring with its barriers within a block's 227 KB of
+    shared memory)."""
+    text = (_build.CSRC / "dma_copy.cu").read_text()
+    defaults = {name: int(value) for name, value in re.findall(
+        r"^#define (TPUFD_DMA_\w+) (\d+)$", text, flags=re.M)}
+    assert tune_dma_copy.CANDIDATES[0] == (
+        defaults.pop("TPUFD_DMA_TILE_KIB"), defaults.pop("TPUFD_DMA_STAGES"),
+        defaults.pop("TPUFD_DMA_STORES"))
+    assert defaults == {}
+    for tile_kib, stages, stores in tune_dma_copy.CANDIDATES:
+        tile = tile_kib * 1024
+        assert tile % 128 == 0 and tile < 1 << 20 and 1 <= stores < stages
+        assert stages * tile + stages * 8 + 128 <= 232448
+
+
+def test_plan_keys_match_what_the_c_query_fills():
+    """launch_plan() names tpufd_dma_copy_plan's plan[0..] in order: one
+    key for each slot the C function writes."""
+    text = (_build.CSRC / "dma_copy.cu").read_text()
+    slots = sorted(int(i) for i in re.findall(r"^  plan\[(\d+)\] = ", text,
+                                              flags=re.M))
+    assert slots == list(range(len(dma_copy.PLAN_KEYS)))
+
+
+def test_tuning_needs_a_card():
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tune_dma_copy.main(["--rounds", "1"])
 
 
 def test_library_is_keyed_on_the_source(tmp_path, monkeypatch):

@@ -17,19 +17,47 @@ from tpufd_torch import _build
 # Kernel launches made by dma_copy(); the plain version never counts.
 launches = 0
 
-_kernel_fn = None
+# What launch_plan() reports, in the order tpufd_dma_copy_plan fills it.
+PLAN_KEYS = ("threads", "blocks_per_chunk", "resident_per_sm", "tile_bytes",
+             "stages", "smem_bytes")
+
+_library = None
+
+
+def bind(lib):
+    """Declares the C signatures of a dma_copy library (a ctypes.CDLL);
+    returns it."""
+    lib.tpufd_dma_copy.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    lib.tpufd_dma_copy.restype = ctypes.c_int
+    lib.tpufd_dma_copy_plan.argtypes = [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.tpufd_dma_copy_plan.restype = ctypes.c_int
+    return lib
+
+
+def _lib():
+    global _library
+    if _library is None:
+        _library = bind(_build.load("dma_copy"))
+    return _library
 
 
 def _kernel():
-    global _kernel_fn
-    if _kernel_fn is None:
-        fn = _build.load("dma_copy").tpufd_dma_copy
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
+    """The C entry point tpufd_dma_copy, as a ctypes function."""
+    return _lib().tpufd_dma_copy
+
+
+def launch_plan(rows, cols, chunks, device):
+    """The launch the kernel makes for a (rows, cols) array in `chunks` on
+    CUDA `device`: {key: int} over PLAN_KEYS."""
+    plan = (ctypes.c_longlong * len(PLAN_KEYS))()
+    with torch.cuda.device(device):
+        err = _lib().tpufd_dma_copy_plan(rows, cols, chunks, plan)
+    if err:
+        raise RuntimeError(f"dma_copy launch plan failed: CUDA error {err}")
+    return dict(zip(PLAN_KEYS, plan))
 
 
 def _check(x, n, chunks):
