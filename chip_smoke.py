@@ -8,25 +8,36 @@ there. Phases, one line or more each; any failure exits non-zero and no
 phase catches an exception:
 
   1. the card: `nvidia-smi` name and power limit;
-  2. build every kernel (one nvcc per source, all started together);
-  3. every kernel against its plain PyTorch version on the card: bit-exact
-     at the probe's shape and at small, ragged and misaligned ones, and at
-     the DMA kernel's edges (chunks 3, one row per chunk, chunks smaller
-     than a tile and a tile plus 16 bytes, more chunks than the grid
-     holds); its C entry point with the output inside a sentinel-filled
-     buffer, which must stay untouched around it; the kernel's launch
-     plan; the wrapper's refusal of a bad row count; kernel, plain-version
-     and library-call times beside the bound, the kernel's time at 2n
-     over its time at n, and the kernel no faster than `copy_` beyond
-     COPY_NOISE;
+  2. build every kernel (one nvcc per source, all started together); then
+     the matmul probe (median of 3), read first in the process;
+  3. every kernel against its plain PyTorch version on the card. The DMA
+     copy: bit-exact at the probe's shape and at small, ragged and
+     misaligned ones, and at its edges (chunks 3, one row per chunk,
+     chunks smaller than a tile and a tile plus 16 bytes, more chunks
+     than the grid holds); its C entry point with the output inside a
+     sentinel-filled buffer, which must stay untouched around it; its
+     launch plan; the wrapper's refusal of a bad row count; kernel,
+     plain-version and library-call times beside the bound, the kernel's
+     time at 2n over its time at n, and the kernel no faster than `copy_`
+     beyond COPY_NOISE. The chain tail: equal to its plain version or at
+     most 1 bf16 ulp apart (the count of elements that differ printed) at
+     the probe's shape, ragged shapes, inputs 6 bytes off a 16-byte
+     boundary and every finite bf16 bit pattern; its C entry point with
+     acc inside a sentinel-filled buffer; its time beside its byte bound,
+     its plain version and the three eager passes it replaced, which it
+     must beat. Then the matmul probe read again;
   4. the slice: health_labels(extended=True) on cuda:0, with every kernel
      launch count set to 0 just before and read just after, and the
      `dma-copy-gbps` label no higher than `copy_`'s rate beyond
      COPY_NOISE; then each probe's device, wall and enqueue time per
-     iteration;
+     iteration, and one chain step split into its product, the three-pass
+     tail and the fused tail;
   5. perfmodel's output lines, in the grammar the daemon parses;
   6. the burn-in forward at entry() width, bf16 on the card against the
-     port's float32 forward on the host;
+     port's float32 forward on the host; the train step: run_burnin and
+     the `burnin` command on the card, and 2 steps on the card in bf16
+     against the same 2 steps in float32 on the host, loss and
+     parameters;
   7. a `{"kernels": [...]}` line;
   8. as the last line, `{"ok": true, "device": {...}}`.
 """
@@ -34,15 +45,19 @@ phase catches an exception:
 import contextlib
 import io
 import json
+import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
-from tpufd_torch import _build, burnin, dma_copy, graft_entry, health
-from tpufd_torch import metrics, perfmodel
+from tpufd_torch import _build, burnin, chain_tail, dma_copy, graft_entry
+from tpufd_torch import health, metrics, perfmodel
+from tpufd_torch import __main__ as cli
 
 PREFIX = "google.com/tpu.health."
 DEVICE = torch.device("cuda", 0)
@@ -56,6 +71,16 @@ SENTINEL = -21846  # 0xaaaa, the int16 canary around an output
 # this factor is served partly from L2, not HBM: its time and its label
 # would overstate the memory. Runs of one card differ by about 2%.
 COPY_NOISE = 1.03
+CHAIN_SHAPE = (4096, 4096)  # the matmul probe's array on the card
+# The train step, bf16 on the card against float32 on the host, as the
+# CPU tests hold the port's bf16 step against the reference's: the loss
+# within rel 2e-2; each parameter within one bf16 ulp of its value
+# (rtol 8e-3) beside half the tensor's largest update (a weight within a
+# few updates of zero is mostly update, whose gradient bf16 rounds).
+TRAIN_LOSS_RTOL, TRAIN_PARAM_RTOL, TRAIN_UPDATE_SHARE = 2e-2, 8e-3, 0.5
+# The data sheet's float32 rate outside the tensor cores (FLOP/s), for the
+# chain tail's operation bound.
+FP32_FLOPS = 67e12
 
 
 def fail(message):
@@ -261,6 +286,170 @@ def phase_kernel(family):
             "shape": list(PROBE_SHAPE), "ratio_2n_n": ratio}
 
 
+def ulp_distance(got, want):
+    """Elementwise distance in bf16 ulps between two bf16 tensors of
+    finite values: their bit patterns as ordered integers (-0 == +0)."""
+    def ordered(t):
+        b = t.reshape(-1).view(torch.int16).int()
+        return torch.where(b < 0, -(b + 32768), b)
+    return (ordered(got) - ordered(want)).abs()
+
+
+def at_offset(values, offset):
+    """A copy of `values` `offset` elements past the start of its (16-byte
+    aligned) allocation."""
+    flat = torch.empty(values.numel() + offset, dtype=values.dtype,
+                       device=values.device)
+    out = flat[offset:].view(values.shape)
+    out.copy_(values)
+    return out
+
+
+def check_chain_tail(p, acc, p_offset=0, acc_offset=0):
+    """Kernel against plain version on the same inputs, p and acc placed
+    at the given element offsets: at most 1 bf16 ulp apart. Returns (max
+    abs difference, elements that differ)."""
+    want = chain_tail.chain_tail_plain(p, acc.clone())
+    got = chain_tail.chain_tail(at_offset(p, p_offset),
+                                at_offset(acc, acc_offset))
+    torch.cuda.synchronize()
+    ulps = ulp_distance(got, want)
+    require(int(ulps.max()) <= 1,
+            f"chain_tail kernel is {int(ulps.max())} bf16 ulps from its "
+            f"plain version at shape {tuple(p.shape)}, offsets "
+            f"{p_offset}/{acc_offset}")
+    return (float((got.float() - want.float()).abs().max()),
+            int((ulps > 0).sum()))
+
+
+def chain_tail_canary(p, acc, pad, p_offset, acc_offset):
+    """The C entry point with acc inside a buffer of SENTINEL, `pad`
+    elements on each side: acc within 1 ulp of the plain version, and no
+    element around it changed."""
+    numel = acc.numel()
+    want = chain_tail.chain_tail_plain(p, acc.clone())
+    buf = torch.full((pad + acc_offset + numel + pad,), SENTINEL,
+                     dtype=torch.int16, device=DEVICE)
+    region = buf[pad + acc_offset:pad + acc_offset + numel]
+    region.copy_(acc.reshape(-1).view(torch.int16))
+    p_at = at_offset(p, p_offset)
+    err = chain_tail._kernel()(p_at.data_ptr(), region.data_ptr(), numel,
+                               torch.cuda.current_stream(DEVICE).cuda_stream)
+    label = f"shape {tuple(p.shape)} offsets {p_offset}/{acc_offset}"
+    require(err == 0, f"tpufd_chain_tail returned CUDA error {err} at {label}")
+    torch.cuda.synchronize()
+    require(int(ulp_distance(region.view(torch.bfloat16), want).max()) <= 1,
+            f"tpufd_chain_tail differs from its plain version at {label}")
+    require(bool((buf[:pad + acc_offset] == SENTINEL).all()),
+            f"tpufd_chain_tail wrote before acc at {label}")
+    require(bool((buf[pad + acc_offset + numel:] == SENTINEL).all()),
+            f"tpufd_chain_tail wrote past acc at {label}")
+
+
+def chain_inputs(shape, gen):
+    """(p, acc) in bf16: p spread over tanh's curved range, acc O(1)."""
+    p = (torch.randn(shape, generator=gen, device=DEVICE) * 2).to(
+        torch.bfloat16)
+    acc = torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+    return p, acc
+
+
+def phase_chain_tail(family):
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    max_err, differ, cases = 0.0, 0, 0
+    # Probe shape; ragged; shorter than a vector; p and acc both 6 bytes
+    # off a 16-byte boundary (head path); aligned unlike (element path).
+    plan = [(CHAIN_SHAPE, 0, 0), ((37, 29), 0, 0), ((1, 7), 0, 0),
+            ((257, 129), 3, 3), ((1, 7), 3, 3), ((257, 129), 0, 3),
+            ((257, 129), 3, 0), (CHAIN_SHAPE, 3, 3)]
+    for shape, p_offset, acc_offset in plan:
+        err, n = check_chain_tail(*chain_inputs(shape, gen), p_offset,
+                                  acc_offset)
+        max_err, differ, cases = max(max_err, err), differ + n, cases + 1
+    # Every finite bf16 bit pattern class, subnormals and signed zeros
+    # included (exponent all ones, inf and NaN, left out).
+    bits = torch.randint(-32768, 32768, (2, 512, 1024), dtype=torch.int16,
+                         device=DEVICE, generator=gen)
+    bits = torch.where((bits & 0x7f80) == 0x7f80, bits & 0x007f, bits)
+    err, n = check_chain_tail(bits[0].view(torch.bfloat16),
+                              bits[1].view(torch.bfloat16))
+    max_err, differ, cases = max(max_err, err), differ + n, cases + 1
+    canaries = 0
+    for shape, p_offset, acc_offset in [(CHAIN_SHAPE, 0, 0), *plan[1:]]:
+        chain_tail_canary(*chain_inputs(shape, gen), 4096, p_offset,
+                          acc_offset)
+        canaries += 1
+    print(f"[3 kernel] chain_tail within 1 bf16 ulp of chain_tail_plain in "
+          f"{cases} cases ({CHAIN_SHAPE}, ragged, 6 bytes off a 16-byte "
+          f"boundary, aligned unlike, all finite bit patterns): {differ} "
+          f"elements differ by 1 ulp, max abs difference {max_err:.3g}; "
+          f"{canaries} canary runs of tpufd_chain_tail untouched around "
+          f"acc")
+
+    p, acc = chain_inputs(CHAIN_SHAPE, gen)
+    ms = cuda_ms(lambda: chain_tail.chain_tail(p, acc), reps=50)
+    plain_ms = cuda_ms(lambda: chain_tail.chain_tail_plain(p, acc), reps=20)
+    three_ms = cuda_ms(lambda: torch.tanh(p).add_(acc).mul_(0.5), reps=20)
+    hbm_gbps = health.RATED_HBM_GBPS.get(family or "h100-sxm")
+    moved = 3 * acc.numel() * acc.element_size()  # read p, acc; write acc
+    bytes_ms = moved / (hbm_gbps * 1e9) * 1e3
+    ops_ms = 3 * acc.numel() / FP32_FLOPS * 1e3  # tanh, add, mul
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[3 kernel] chain_tail per step at {CHAIN_SHAPE} bf16: kernel "
+          f"{ms:.4f} ms ({moved / ms / 1e6:.0f} GB/s), bound {bound_ms:.4f} "
+          f"ms ({moved} B at {hbm_gbps:.0f} GB/s, {bound_ms / ms:.1%} of "
+          f"it; operations {ops_ms:.5f} ms), plain {plain_ms:.4f} ms, three "
+          f"eager passes (tanh, add_, mul_) {three_ms:.4f} ms")
+    require(ms < three_ms,
+            f"fused tail {ms:.4f} ms is not faster than the three passes "
+            f"{three_ms:.4f} ms")
+    return {"name": "chain_tail", "route": "cuda",
+            "source": "tpufd_torch/csrc/chain_tail.cu",
+            "replaces": "tpufd/health.py:188", "launches": None,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "per": "step", "shape": list(CHAIN_SHAPE),
+            "three_pass_ms": three_ms, "ulps_differ": differ}
+
+
+def phase_matmul_read(phase, when):
+    """The matmul probe as health_labels runs it (median of 3)."""
+    t0 = time.perf_counter()
+    tflops = health.median_probe(
+        lambda: health.matmul_tflops(device=DEVICE))
+    print(f"[{phase} matmul] matmul-tflops {when}: {tflops:.1f} "
+          f"(median of 3, {time.perf_counter() - t0:.1f} s)")
+
+
+def chain_step_split():
+    """Device ms of one chain step at the probe's shape and input, split
+    into its product, the three eager passes and the fused tail, and of
+    a 64-step chain with either tail."""
+    acc = torch.full(CHAIN_SHAPE, 0.001 * 0.25, dtype=torch.bfloat16,
+                     device=DEVICE)
+    p = acc @ acc
+    gemm = cuda_ms(lambda: torch.matmul(acc, acc, out=p), reps=50)
+    three = cuda_ms(lambda: torch.tanh(p).add_(acc).mul_(0.5), reps=50)
+    work = acc.clone()  # the fused tail runs in place on it
+    fused = cuda_ms(lambda: chain_tail.chain_tail(p, work), reps=50)
+
+    def three_pass_chain(x, n):
+        for _ in range(n):
+            x = torch.tanh(x @ x).add_(x).mul_(0.5)
+        return x
+
+    steps = 64
+    chain_three = cuda_ms(lambda: three_pass_chain(acc.clone(), steps),
+                          reps=3) / steps
+    chain_fused = cuda_ms(
+        lambda: health._matmul_chain(acc.clone(), steps), reps=3) / steps
+    print(f"    chain step at {CHAIN_SHAPE} bf16: GEMM {gemm:.4f} ms, "
+          f"three-pass tail {three:.4f} ms, fused tail {fused:.4f} ms; "
+          f"{steps}-step chain {chain_three:.4f} ms/step with the three "
+          f"passes, {chain_fused:.4f} ms/step fused")
+
+
 def probe_iteration_times(name, fn, n):
     """Device, wall and enqueue milliseconds per iteration of one probe
     body: if enqueueing an iteration takes far less than the device
@@ -286,10 +475,12 @@ def probe_iteration_times(name, fn, n):
 
 def phase_slice(family, copy_gbps):
     dma_copy.launches = 0
+    chain_tail.launches = 0
     t0 = time.perf_counter()
     labels = health.health_labels(extended=True, device=DEVICE)
     seconds = time.perf_counter() - t0
-    launches = {"dma_copy": dma_copy.launches}
+    launches = {"dma_copy": dma_copy.launches,
+                "chain_tail": chain_tail.launches}
     require(labels.get(PREFIX + "ok") == "true", f"ok is not true: {labels}")
     for leaf in ("matmul-tflops", "hbm-gbps", "dma-copy-gbps"):
         value = labels.get(PREFIX + leaf)
@@ -322,6 +513,7 @@ def phase_slice(family, copy_gbps):
                           64)
     probe_iteration_times("dma-copy-gbps",
                           health._dma_copy_probe_fn(DEVICE, 256, 2), 64)
+    chain_step_split()
     return launches
 
 
@@ -363,16 +555,107 @@ def phase_burnin():
           f"{BURNIN_ATOL})")
 
 
+def sample(text, name, labels=""):
+    """The value of sample `name{labels}` in a Prometheus textfile."""
+    match = re.search(rf"^{re.escape(name + labels)} (\S+)$", text,
+                      flags=re.M)
+    require(match is not None, f"{name}{labels} missing from the textfile")
+    return float(match.group(1))
+
+
+def phase_train():
+    t0 = time.perf_counter()
+    loss = burnin.run_burnin(device=DEVICE, steps=2)
+    require(math.isfinite(loss), f"run_burnin loss is {loss}")
+    print(f"[6 burn-in] run_burnin(cuda:0, steps 2) at d_model 256, d_ff "
+          f"1024: final loss {loss:.6f} in {time.perf_counter() - t0:.2f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "burnin.prom")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["burnin", "--device", "cuda", "--metrics-out",
+                           path])
+        lines = out.getvalue().splitlines()
+        require(rc == 0, f"burnin command returned {rc}: {lines}")
+        require(lines[:2] == [
+            f"devices: 1 x {torch.cuda.get_device_name(DEVICE)}",
+            "mesh: data=1 model=1"], f"burnin command printed {lines}")
+        match = re.fullmatch(r"final loss after 2 steps: (\S+) \(ok\)",
+                             lines[2] if len(lines) == 3 else "")
+        require(match is not None, f"burnin command printed {lines}")
+        with open(path) as f:
+            text = f.read()
+    hist = "tpufd_burnin_step_duration_seconds_count"
+    for phase in ("compile", "steady"):
+        require(sample(text, hist, f'{{phase="{phase}"}}') >= 1,
+                f"no {phase} step in the burnin textfile")
+    require(abs(sample(text, "tpufd_burnin_final_loss")
+                - float(match.group(1))) <= 1e-6,
+            "burnin textfile's final loss is not the printed one")
+    print(f"[6 burn-in] `burnin --device cuda --metrics-out`: "
+          f"{' | '.join(lines)}; textfile holds both step phases and the "
+          f"final loss")
+
+    # The same 2 steps from the same parameters and inputs: bf16 on the
+    # card, float32 on the host.
+    card = burnin.init_params(torch.Generator().manual_seed(0),
+                              device=DEVICE)
+    host = burnin.BurninMLP(256, 1024, dtype=torch.float32)
+    host.load_state_dict({k: v.float().cpu()
+                          for k, v in card.state_dict().items()})
+    init = burnin.params_to_numpy(card)
+    x = torch.randn((4, 8, 256), generator=torch.Generator().manual_seed(0))
+    x = x.to(torch.bfloat16)
+    y = torch.zeros_like(x)
+    step_card = burnin.make_train_step(card)
+    step_host = burnin.make_train_step(host)
+    losses = []
+    for _ in range(2):
+        losses.append((float(step_card(x.to(DEVICE), y.to(DEVICE))),
+                       float(step_host(x.float(), y.float()))))
+    for got, want in losses:
+        require(math.isfinite(got) and abs(got - want) <= (
+            TRAIN_LOSS_RTOL * abs(want)),
+                f"card loss {got} against host {want}")
+    got, want = burnin.params_to_numpy(card), burnin.params_to_numpy(host)
+    worst = 0.0
+    for name in ("w_in", "w_out", "gamma"):
+        g, w = torch.from_numpy(got[name]), torch.from_numpy(want[name])
+        update = float((w - torch.from_numpy(init[name])).abs().max())
+        limit = TRAIN_PARAM_RTOL * w.abs() + TRAIN_UPDATE_SHARE * update
+        excess = float(((g - w).abs() - limit).max())
+        require(excess <= 0, f"card {name} after 2 steps differs from the "
+                             f"host's beyond tolerance by {excess:.3g}")
+        worst = max(worst, float((g - w).abs().max()))
+
+    x_card, y_card = x.to(DEVICE), y.to(DEVICE)
+    card_ms = cuda_ms(lambda: step_card(x_card, y_card), reps=20)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step_host(x.float(), y.float())
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"[6 burn-in] train step, 2 steps from the same parameters: card "
+          f"bf16 loss {losses[0][0]:.6f}, {losses[1][0]:.6f}; host float32 "
+          f"{losses[0][1]:.6f}, {losses[1][1]:.6f}; parameters max abs diff "
+          f"{worst:.3g} (rtol {TRAIN_PARAM_RTOL} + {TRAIN_UPDATE_SHARE} of "
+          f"the largest update); per step: card {card_ms:.4f} device ms, "
+          f"host {host_ms:.3f} wall ms")
+
+
 def main():
     family = phase_card()
     phase_build()
-    kernels = [phase_kernel(family)]
+    phase_matmul_read(2, "first in the process")
+    kernels = [phase_kernel(family), phase_chain_tail(family)]
+    phase_matmul_read(3, "after the kernel checks")
     moved = 2 * PROBE_SHAPE[0] * PROBE_SHAPE[1] * 2  # bf16, read + write
     launches = phase_slice(family, moved / kernels[0]["library_ms"] / 1e6)
     for kernel in kernels:
         kernel["launches"] = launches[kernel["name"]]
     phase_perfmodel()
     phase_burnin()
+    phase_train()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

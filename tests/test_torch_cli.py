@@ -1,11 +1,14 @@
-"""`python -m tpufd_torch` as the daemon runs it: the health command's
-label lines and metrics textfile, the perfmodel command's bare lines, and
-the real daemon merging the port's labels into its feature file."""
+"""`python -m tpufd_torch` as the daemon and operators run it: the health
+command's label lines and metrics textfile, the perfmodel command's bare
+lines, the burnin command's report, and the real daemon merging the
+port's labels into its feature file."""
 
 import os
 import re
 import subprocess
 import sys
+
+import pytest
 
 from conftest import FIXTURES, REPO, labels_of
 
@@ -57,6 +60,54 @@ def test_cli_without_a_card_fails_loudly():
     assert proc.returncode != 0
     assert proc.stdout == ""
     assert "no CUDA device" in proc.stderr
+
+
+def test_burnin_cli_on_cpu_prints_the_reference_lines(tmp_path):
+    from tpufd import metrics as ref_metrics
+
+    metrics_out = tmp_path / "burnin.prom"
+    proc = run_port("burnin", "--device", "cpu", "--steps", "2",
+                    "--skip-ring", "--metrics-out", str(metrics_out))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[:2] == ["devices: 1 x cpu", "mesh: data=1 model=1"]
+    match = re.fullmatch(r"final loss after 2 steps: (\S+) \(ok\)",
+                         lines[2])
+    assert match and float(match.group(1)) > 0 and len(lines) == 3
+    text = metrics_out.read_text()
+    ref_metrics.validate_exposition(text)
+    for phase in ("compile", "steady"):
+        assert ref_metrics.sample_value(
+            text, "tpufd_burnin_step_duration_seconds_count",
+            labels={"phase": phase}) == 1
+    assert ref_metrics.sample_value(
+        text, "tpufd_burnin_final_loss") == pytest.approx(
+            float(match.group(1)), abs=1e-6)
+
+
+def test_burnin_cli_without_a_card_fails_loudly():
+    proc = run_port("burnin", timeout=60)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "no CUDA device" in proc.stderr
+
+
+def test_burnin_cli_model_parallelism_error_matches_jax(cpu_jax):
+    """--model-parallelism 2 on one device: the reference's error."""
+    from tpufd import mesh as ref_mesh
+
+    with pytest.raises(ValueError) as want:
+        ref_mesh.data_model_mesh(cpu_jax.devices("cpu")[:1],
+                                 model_parallelism=2)
+    proc = run_port("burnin", "--device", "cpu", "--model-parallelism", "2",
+                    timeout=60)
+    assert proc.returncode != 0 and proc.stdout == ""
+    assert f"ValueError: {want.value}" in proc.stderr
+
+
+def test_burnin_cli_rejects_non_positive_steps():
+    proc = run_port("burnin", "--device", "cpu", "--steps", "0", timeout=60)
+    assert proc.returncode == 2 and "must be >= 1" in proc.stderr
 
 
 def test_daemon_merges_port_health_labels(tfd_binary, tmp_path):

@@ -32,9 +32,9 @@ def test_matmul_chain_float32_matches_jax(cpu_jax):
 
 
 def test_matmul_chain_bf16_matches_jax(cpu_jax):
-    """bf16: the two frameworks round at other places (XLA keeps fused
-    elementwise intermediates in float32, eager PyTorch rounds after each
-    op), so the bound is a few bf16 ulps: rtol 2e-2."""
+    """bf16: the two round at other places (XLA on the CPU rounds after
+    each elementwise op, the port's fused tail once, in float32), so the
+    bound is a few bf16 ulps: rtol 2e-2."""
     from tpufd import health as ref
 
     jnp = cpu_jax.numpy

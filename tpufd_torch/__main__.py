@@ -6,12 +6,16 @@
   python -m tpufd_torch perfmodel  — print bare matmul-tflops= / hbm-gbps=
                                      lines (the daemon's --perf-exec
                                      payload)
+  python -m tpufd_torch burnin     — run the burn-in train step on one
+                                     card (forward, backward, SGD) and
+                                     report its final loss
 
-Both run on the CUDA card and fail without one, unless --device cpu asks
+All run on the CUDA card and fail without one, unless --device cpu asks
 for the host.
 """
 
 import argparse
+import math
 import sys
 
 
@@ -26,6 +30,33 @@ def cmd_health(args):
     if args.metrics_out:
         metrics.default_registry().write_textfile(args.metrics_out)
     return 0 if labels.get(args.prefix + "ok") == "true" else 1
+
+
+def cmd_burnin(args):
+    import torch
+
+    from tpufd_torch import burnin, health, mesh, metrics
+
+    device = health.resolve_device(args.device)
+    data_n, model_n = mesh.data_model_shape(1, args.model_parallelism)
+    on_card = device.type == "cuda"
+    kind = torch.cuda.get_device_name(device) if on_card else "cpu"
+    print(f"devices: 1 x {kind}")
+    print(f"mesh: data={data_n} model={model_n}")
+    n_visible = torch.cuda.device_count() if on_card else 1
+    if n_visible > 1:
+        sys.stderr.write(
+            f"burn-in runs on {device} alone: {n_visible} cards visible "
+            f"and the sharded step and the ring attention check are not "
+            f"ported\n")
+    loss = burnin.run_burnin(device=device, steps=args.steps,
+                             model_parallelism=args.model_parallelism)
+    ok = math.isfinite(loss)
+    print(f"final loss after {args.steps} steps: {loss:.6f} "
+          f"({'ok' if ok else 'NOT FINITE'})")
+    if args.metrics_out:
+        metrics.default_registry().write_textfile(args.metrics_out)
+    return 0 if ok else 1
 
 
 def cmd_perfmodel(args):
@@ -56,6 +87,26 @@ def main(argv=None):
              "(node-exporter textfile-collector format) to this path")
     add_device(health)
     health.set_defaults(fn=cmd_health)
+
+    def positive_int(text):
+        value = int(text)
+        if value < 1:
+            raise argparse.ArgumentTypeError("must be >= 1")
+        return value
+
+    burnin = sub.add_parser("burnin", help="burn-in train step on one card")
+    burnin.add_argument("--steps", type=positive_int, default=2)
+    burnin.add_argument("--model-parallelism", type=int, default=None)
+    burnin.add_argument(
+        "--skip-ring", action="store_true",
+        help="skip the ring-attention check (it runs only across cards, "
+             "which the port does not drive yet)")
+    burnin.add_argument(
+        "--metrics-out", default="",
+        help="also write step timing telemetry as a Prometheus textfile "
+             "to this path")
+    add_device(burnin)
+    burnin.set_defaults(fn=cmd_burnin)
 
     perfmodel = sub.add_parser(
         "perfmodel",

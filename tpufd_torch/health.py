@@ -4,7 +4,8 @@ The daemon's --device-health=full mode execs ``python3 -m tpufd_torch
 health`` and merges the label lines this module renders; --perf-exec
 runs the same probes through ``tpufd_torch.perfmodel``. Three probes:
 
-  - the bf16 matmul chain (``_matmul_chain``), TFLOP/s;
+  - the bf16 matmul chain (``_matmul_chain``), TFLOP/s, whose elementwise
+    tail runs the hand-written CUDA kernel of ``tpufd_torch.chain_tail``;
   - the HBM sign-flip stream (``_stream``), GB/s read+write;
   - with ``extended=True``, the DMA-copy probe (``dma_copy_gbps``), which
     runs the hand-written CUDA copy kernel of ``tpufd_torch.dma_copy``.
@@ -29,6 +30,7 @@ import time
 
 import torch
 
+from tpufd_torch import chain_tail as chain_tail_lib
 from tpufd_torch import dma_copy as dma_copy_lib
 from tpufd_torch import metrics
 from tpufd_torch import sched as sched_lib
@@ -160,13 +162,15 @@ def _settle_s(device):
 
 def _matmul_chain(x, n):
     """n steps of acc <- tanh(acc @ acc) * 0.5 + acc * 0.5 (the reference's
-    _matmul_chain). Written as (tanh(acc @ acc) + acc) * 0.5 in place:
-    halving is exact in bf16 and float32 away from underflow, so it
-    rounds exactly as the reference's form, with two fewer passes."""
-    acc = x
+    _matmul_chain), in place on x, which it returns. Each step is one
+    product and one fused elementwise pass (chain_tail: the CUDA kernel
+    on the card, its plain version on the CPU), as XLA fuses the
+    reference's tail. The tail is computed in float32 and rounded once;
+    halving is exact away from underflow, so (tanh(p) + acc) * 0.5 is the
+    reference's form."""
     for _ in range(n):
-        acc = torch.tanh(acc @ acc).add_(acc).mul_(0.5)
-    return acc
+        chain_tail_lib.chain_tail(x @ x, x)
+    return x
 
 
 def _matmul_probe_fn(device, size):
