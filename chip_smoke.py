@@ -38,8 +38,17 @@ phase catches an exception:
      the `burnin` command on the card, and 2 steps on the card in bf16
      against the same 2 steps in float32 on the host, loss and
      parameters;
-  7. a `{"kernels": [...]}` line;
-  8. as the last line, `{"ok": true, "device": {...}}`.
+  7. multi-card: one NCCL rank per visible card (launch.spawn_ranks; the
+     world size and NCCL version printed first), each running the sharded
+     run_burnin (2 steps, reference width), its loss finite and within
+     rel 1e-2 of the one-card loss at the same (data, model) shape, the
+     collectives of one sharded step counted by CommDebugMode; ring
+     attention in both modes at the reference's defaults, within 1e-4 of
+     full attention; allreduce_gbps at 64 MiB (at one rank the reference's
+     byte count is 0, so only a finite value is required). With more than
+     one card, health_labels must also publish allreduce-gbps;
+  8. a `{"kernels": [...]}` line;
+  9. as the last line, `{"ok": true, "device": {...}}`.
 """
 
 import contextlib
@@ -54,9 +63,13 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor.debug import CommDebugMode
 
 from tpufd_torch import _build, burnin, chain_tail, dma_copy, graft_entry
-from tpufd_torch import health, metrics, perfmodel
+from tpufd_torch import health, launch, mesh, metrics, perfmodel
 from tpufd_torch import __main__ as cli
 
 PREFIX = "google.com/tpu.health."
@@ -81,6 +94,11 @@ TRAIN_LOSS_RTOL, TRAIN_PARAM_RTOL, TRAIN_UPDATE_SHARE = 2e-2, 8e-3, 0.5
 # The data sheet's float32 rate outside the tensor cores (FLOP/s), for the
 # chain tail's operation bound.
 FP32_FLOPS = 67e12
+# The sharded burn-in loss against the one-card loss at the same shape:
+# both bf16 on the card, the sharded one summing partial products in
+# another order.
+SHARDED_LOSS_RTOL = 1e-2
+RING_TOL = 1e-4  # float32 ring attention against full attention
 
 
 def fail(message):
@@ -641,6 +659,98 @@ def phase_train():
           f"{worst:.3g} (rtol {TRAIN_PARAM_RTOL} + {TRAIN_UPDATE_SHARE} of "
           f"the largest update); per step: card {card_ms:.4f} device ms, "
           f"host {host_ms:.3f} wall ms")
+    return loss
+
+
+def multicard_rank():
+    """One NCCL rank of phase 7; returns what rank 0 measured."""
+    world = dist.get_world_size()
+    out = {"world": world}
+    dm = mesh.data_model_mesh("cuda")
+    out["mesh"] = (dm["data"].size(), dm["model"].size())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["loss"] = burnin.run_burnin(mesh=dm, steps=2)
+    out["burnin_s"] = time.perf_counter() - t0
+
+    # One sharded step alone under CommDebugMode, from the same start.
+    model = burnin.init_params(torch.Generator().manual_seed(0),
+                               device=health.resolve_device("cuda"))
+    burnin.shard_model(model, dm)
+    batch, seq = 4 * out["mesh"][0], 8 * out["mesh"][1]
+    x = torch.randn((batch, seq, 256),
+                    generator=torch.Generator().manual_seed(0))
+    x = distribute_tensor(x.to(model.gamma.device, torch.bfloat16), dm,
+                          burnin.batch_placements(dm))
+    step = burnin.make_train_step(model)
+    with CommDebugMode() as comm:
+        step(x, torch.zeros_like(x))
+    out["collectives"] = {str(op).split(".")[-1]: n for op, n in
+                          comm.get_comm_counts().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(x, torch.zeros_like(x))
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+
+    ring_mesh = init_device_mesh("cuda", (world,),
+                                 mesh_dim_names=("context",))
+    out["ring"] = {}
+    for causal in (False, True):
+        t0 = time.perf_counter()
+        err = burnin.run_ring_attention_burnin(ring_mesh, causal=causal)
+        out["ring"]["causal" if causal else "bidirectional"] = (
+            err, time.perf_counter() - t0)
+
+    all_mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("all",))
+    t0 = time.perf_counter()
+    out["allreduce_gbps"] = health.allreduce_gbps(all_mesh, mib=64)
+    out["allreduce_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_multicard(one_card_loss):
+    world = torch.cuda.device_count()
+    print(f"[7 multi-card] world size {world} (one NCCL rank per card), "
+          f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}")
+    t0 = time.perf_counter()
+    out = launch.spawn_ranks(multicard_rank, world, "cuda", timeout=240)
+    spawn_s = time.perf_counter() - t0
+    data_n, model_n = out["mesh"]
+    if (data_n, model_n) != (1, 1):  # phase 6 ran batch 4, seq 8
+        one_card_loss = burnin.run_burnin(device=DEVICE, batch=4 * data_n,
+                                          seq=8 * model_n, steps=2)
+    loss = out["loss"]
+    require(math.isfinite(loss) and abs(loss - one_card_loss) <= (
+        SHARDED_LOSS_RTOL * abs(one_card_loss)),
+            f"sharded loss {loss} against one card's {one_card_loss}")
+    print(f"[7 multi-card] sharded run_burnin over mesh data={data_n} "
+          f"model={model_n} (batch {4 * data_n}, seq {8 * model_n}, d_model "
+          f"256, d_ff 1024, bf16, 2 steps): final loss {loss:.6f}, one card "
+          f"at the same shape {one_card_loss:.6f}; {out['burnin_s']:.3f} s "
+          f"with first use; one sharded step {out['step_ms']:.3f} wall ms; "
+          f"collectives in one step (CommDebugMode) {out['collectives']}")
+    for mode, (err, seconds) in out["ring"].items():
+        require(err <= RING_TOL, f"{mode} ring attention err {err}")
+        print(f"[7 multi-card] {mode} ring attention over context={world} "
+              f"(heads 2, seq {8 * world}, d_head 64, float32): max abs err "
+              f"{err:.3g} vs full attention (tol {RING_TOL}), {seconds:.3f} s")
+    gbps = out["allreduce_gbps"]
+    require(math.isfinite(gbps), f"allreduce_gbps is {gbps}")
+    print(f"[7 multi-card] allreduce_gbps(64 MiB) over {world} rank(s): "
+          f"{gbps:.4g} GB/s in {out['allreduce_s']:.2f} s"
+          + (" (one rank: the reference's byte count 2 n 2 (k-1)/k is 0; "
+             "only a finite value that returns is required)"
+             if world == 1 else ""))
+    print(f"[7 multi-card] spawn, rendezvous, NCCL init and the rank work: "
+          f"{spawn_s:.2f} s")
+    if world > 1:
+        labels = health.health_labels(extended=False, device=DEVICE)
+        require(labels.get(PREFIX + "ok") == "true" and float(
+            labels.get(PREFIX + "allreduce-gbps", "0")) > 0,
+                f"health_labels over {world} cards: {labels}")
+        print(f"[7 multi-card] health_labels over {world} cards: "
+              f"allreduce-gbps={labels[PREFIX + 'allreduce-gbps']}")
 
 
 def main():
@@ -655,7 +765,7 @@ def main():
         kernel["launches"] = launches[kernel["name"]]
     phase_perfmodel()
     phase_burnin()
-    phase_train()
+    phase_multicard(phase_train())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

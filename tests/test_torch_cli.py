@@ -131,3 +131,80 @@ def test_daemon_merges_port_health_labels(tfd_binary, tmp_path):
     assert float(labels[PREFIX + "hbm-gbps"]) > 0
     assert labels[PREFIX + "devices-consistent"] == "false"
     assert labels[PREFIX + "devices-jax"] == "1"
+
+
+class FakeSpawn:
+    """launch.spawn_ranks stand-in for the multi-card burnin command."""
+
+    def __init__(self, ring_error=None):
+        self.calls = []
+        self.ring_error = ring_error
+
+    def __call__(self, fn, world, device_type, args=(), **kwargs):
+        self.calls.append((fn.__name__, world, device_type, args))
+        ring = [] if not args[3] else [
+            ("bidirectional", 2.5e-7, None),
+            ("causal", None if self.ring_error else 3.5e-7, self.ring_error)]
+        return {"loss": 1.25, "ring": ring}
+
+
+@pytest.mark.parametrize("argv, ring, error", [
+    ([], True, None),
+    (["--skip-ring"], False, None),
+    (["--model-parallelism", "1"], True, "causal ring attention diverged"),
+])
+def test_burnin_cli_spawns_one_nccl_rank_per_card(monkeypatch, capsys, argv,
+                                                  ring, error):
+    """With two visible cards the command runs the sharded step and both
+    ring modes on one NCCL rank per card, and prints the reference's
+    lines; a diverged ring mode prints FAILED and exits 1."""
+    import torch
+
+    from tpufd_torch import __main__ as cli
+    from tpufd_torch import health, launch
+
+    monkeypatch.setattr(health, "resolve_device",
+                        lambda device: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: "NVIDIA H100 80GB HBM3")
+    spawn = FakeSpawn(ring_error=error)
+    monkeypatch.setattr(launch, "spawn_ranks", spawn)
+    rc = cli.main(["burnin", "--steps", "3", *argv])
+    mp = 1 if "--model-parallelism" in argv else None
+    assert spawn.calls == [("sharded_acceptance", 2, "cuda",
+                            ("cuda", 3, mp, ring, ""))]
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[:3] == [
+        "devices: 2 x NVIDIA H100 80GB HBM3",
+        f"mesh: data={2 if mp == 1 else 1} model={1 if mp == 1 else 2}",
+        "final loss after 3 steps: 1.250000 (ok)"]
+    if not ring:
+        assert len(lines) == 3 and rc == 0
+    elif error is None:
+        assert lines[3:] == [
+            "bidirectional ring attention over context=2: max abs err "
+            "2.50e-07 vs full attention (ok)",
+            "causal ring attention over context=2: max abs err 3.50e-07 vs "
+            "full attention (ok)"] and rc == 0
+    else:
+        assert lines[4] == f"causal ring attention FAILED: {error}"
+        assert rc == 1
+
+
+def test_dryrun_multichip_hermetic_in_a_fresh_interpreter():
+    """dryrun_multichip(4) in a fresh interpreter, as
+    test_graft_dryrun_hermetic_subprocess runs the reference's: 4 gloo
+    ranks run the sharded step and both ring modes, each rank checking
+    that it never initialised CUDA."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import torch\n"
+         "from tpufd_torch import graft_entry as g\n"
+         "g.dryrun_multichip(4)\n"
+         "assert not torch.cuda.is_initialized()\n"
+         "print('DRYRUN_OK')"],
+        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines() == ["DRYRUN_OK"]

@@ -29,7 +29,8 @@ def imported_modules(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"health.py", "dma_copy.py", "chain_tail.py", "burnin.py",
-            "mesh.py", "perfmodel.py", "__main__.py", "chip_smoke.py"} <= names
+            "mesh.py", "launch.py", "perfmodel.py", "__main__.py",
+            "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -6,9 +6,11 @@
   python -m tpufd_torch perfmodel  — print bare matmul-tflops= / hbm-gbps=
                                      lines (the daemon's --perf-exec
                                      payload)
-  python -m tpufd_torch burnin     — run the burn-in train step on one
-                                     card (forward, backward, SGD) and
-                                     report its final loss
+  python -m tpufd_torch burnin     — run the burn-in train step
+                                     (forward, backward, SGD), sharded
+                                     over every card when there are
+                                     several, then ring attention across
+                                     them, and report the final loss
 
 All run on the CUDA card and fail without one, unless --device cpu asks
 for the host.
@@ -35,27 +37,40 @@ def cmd_health(args):
 def cmd_burnin(args):
     import torch
 
-    from tpufd_torch import burnin, health, mesh, metrics
+    from tpufd_torch import burnin, health, launch, mesh, metrics
 
     device = health.resolve_device(args.device)
-    data_n, model_n = mesh.data_model_shape(1, args.model_parallelism)
     on_card = device.type == "cuda"
+    n_cards = torch.cuda.device_count() if on_card else 1
+    data_n, model_n = mesh.data_model_shape(n_cards, args.model_parallelism)
     kind = torch.cuda.get_device_name(device) if on_card else "cpu"
-    print(f"devices: 1 x {kind}")
+    print(f"devices: {n_cards} x {kind}")
     print(f"mesh: data={data_n} model={model_n}")
-    n_visible = torch.cuda.device_count() if on_card else 1
-    if n_visible > 1:
-        sys.stderr.write(
-            f"burn-in runs on {device} alone: {n_visible} cards visible "
-            f"and the sharded step and the ring attention check are not "
-            f"ported\n")
-    loss = burnin.run_burnin(device=device, steps=args.steps,
-                             model_parallelism=args.model_parallelism)
+    if n_cards == 1:
+        loss = burnin.run_burnin(device=device, steps=args.steps,
+                                 model_parallelism=args.model_parallelism)
+        rings = []
+        if args.metrics_out:
+            metrics.default_registry().write_textfile(args.metrics_out)
+    else:
+        # One NCCL rank per card: the sharded step over a (data, model)
+        # mesh, then ring attention over all cards, each checked for
+        # equality against full attention.
+        result = launch.spawn_ranks(
+            burnin.sharded_acceptance, n_cards, "cuda",
+            args=("cuda", args.steps, args.model_parallelism,
+                  not args.skip_ring, args.metrics_out))
+        loss, rings = result["loss"], result["ring"]
     ok = math.isfinite(loss)
     print(f"final loss after {args.steps} steps: {loss:.6f} "
           f"({'ok' if ok else 'NOT FINITE'})")
-    if args.metrics_out:
-        metrics.default_registry().write_textfile(args.metrics_out)
+    for mode, err, error in rings:
+        if error is None:
+            print(f"{mode} ring attention over context={n_cards}: max abs "
+                  f"err {err:.2e} vs full attention (ok)")
+        else:
+            print(f"{mode} ring attention FAILED: {error}")
+            ok = False
     return 0 if ok else 1
 
 
@@ -94,17 +109,17 @@ def main(argv=None):
             raise argparse.ArgumentTypeError("must be >= 1")
         return value
 
-    burnin = sub.add_parser("burnin", help="burn-in train step on one card")
+    burnin = sub.add_parser("burnin", help="sharded burn-in train step")
     burnin.add_argument("--steps", type=positive_int, default=2)
     burnin.add_argument("--model-parallelism", type=int, default=None)
     burnin.add_argument(
         "--skip-ring", action="store_true",
-        help="skip the ring-attention check (it runs only across cards, "
-             "which the port does not drive yet)")
+        help="skip the context-parallel ring-attention acceptance check "
+             "(runs by default when several cards are visible)")
     burnin.add_argument(
         "--metrics-out", default="",
-        help="also write step timing telemetry as a Prometheus textfile "
-             "to this path")
+        help="also write step/ring timing telemetry as a Prometheus "
+             "textfile to this path")
     add_device(burnin)
     burnin.set_defaults(fn=cmd_burnin)
 

@@ -10,6 +10,11 @@ runs the same probes through ``tpufd_torch.perfmodel``. Three probes:
   - with ``extended=True``, the DMA-copy probe (``dma_copy_gbps``), which
     runs the hand-written CUDA copy kernel of ``tpufd_torch.dma_copy``.
 
+With more than one card, two multi-device probes run on every rank of a
+process group, one rank per card (``tpufd_torch.launch``): the all-reduce
+(``allreduce_gbps``, NCCL) and, over a coordinate grid of devices, the
+per-axis ring (``ici_axis_gbps``, point-to-point sends).
+
 Timing is differential, as in the reference: t(2n) - t(n) over salted
 inputs, median of 3 pairs, loop length grown until the difference is
 measurable, so launch latency, allocation and host round-trips cancel.
@@ -28,10 +33,14 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from tpufd_torch import chain_tail as chain_tail_lib
 from tpufd_torch import dma_copy as dma_copy_lib
+from tpufd_torch import launch
 from tpufd_torch import metrics
 from tpufd_torch import sched as sched_lib
 from tpufd_torch.perfmodel import load_rated_specs
@@ -76,6 +85,15 @@ def family_of(device):
     return family_of_name(torch.cuda.get_device_name(device))
 
 
+def _visible_devices(device):
+    """The devices a probe on `device` can span: every visible CUDA card
+    for a card, the host alone for the CPU."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def resolve_device(device=None):
     """The device the probes run on: the current CUDA card by default,
     the CPU only when asked for. Raises RuntimeError when a card is
@@ -112,12 +130,28 @@ def _salt():
     return (next(_salt_counter) % 13 + 1) * 0.125
 
 
-def _time_iters(fn, iters, settle_s=0.5):
+def _agree_max(value, device):
+    """The largest of every rank's `value` (an all-reduce on `device`);
+    `value` itself when device is None (this process alone)."""
+    if device is None:
+        return value
+    agreed = torch.tensor([value], dtype=torch.float64, device=device)
+    dist.all_reduce(agreed, op=dist.ReduceOp.MAX)
+    return float(agreed)
+
+
+def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
     """Seconds attributable to `iters` loop iterations alone.
 
     `fn(n, salt)` must run `n` loop iterations and fold `salt` into its
     input. Times runs at n and 2n and returns the difference, so fixed
     per-call overhead cancels instead of polluting the throughput number.
+
+    When `fn` runs collectives, every rank of the process group must run
+    the same sequence of n: `agree_on` (the device of the ranks'
+    collectives) makes every calibration step judge the largest median
+    difference of all ranks, agreed outside the timed runs, and all ranks
+    return that time.
 
     Raises RuntimeError when the difference is not measurable (jitter or
     caching swamped it); callers must treat that as probe failure, not as
@@ -140,10 +174,11 @@ def _time_iters(fn, iters, settle_s=0.5):
     n = iters
     while True:
         diffs = sorted(run(2 * n) - run(n) for _ in range(3))
-        if diffs[1] >= settle_s or n >= iters * 1024:
+        median = _agree_max(diffs[1], agree_on)  # median rides out jitter
+        if median >= settle_s or n >= iters * 1024:
             break
         n *= 4
-    seconds_for_n = diffs[1]  # median rides out jitter
+    seconds_for_n = median
     if seconds_for_n < settle_s / 2:
         # Hitting the calibration cap with the diff still below the floor
         # means device time never grew with the loop length — a tiny
@@ -238,6 +273,142 @@ def dma_copy_gbps(device=None, mib=256, iters=16, chunks=2):
     return 2.0 * rows * cols * 2 * iters / seconds / 1e9
 
 
+# ---- multi-device probes: run on every rank of a process group -------------
+
+def _allreduce_loop(acc, n, group):
+    """n steps of acc <- acc + all_reduce(acc) * 1e-6 (the reference's
+    reduce_loop: the sum over the ranks' rows, kept bounded). all_reduce
+    works in place, so each step reduces a copy."""
+    for _ in range(n):
+        summed = acc.clone()
+        dist.all_reduce(summed, group=group)
+        acc = acc + summed * 1e-6
+    return acc
+
+
+def allreduce_gbps(mesh, mib=64, iters=8):
+    """All-reduce bandwidth (GB/s) over the first axis of `mesh`, on every
+    rank: each rank holds one row of n // k bf16 elements (n = mib MiB,
+    k ranks), as the reference shards its (k, n // k) array.
+
+    The byte count is the reference's, 2 (k - 1) / k of all n elements per
+    step, though each rank reduces its one row of n / k: the label reads
+    k times the bus bandwidth of that reduction. At k = 1 it is 0."""
+    axis = mesh.mesh_dim_names[0]
+    k = mesh.size()
+    n = mib * 1024 * 1024 // 2
+    device = resolve_device(mesh.device_type)
+    x = torch.ones(n // k, dtype=torch.bfloat16, device=device)
+    group = mesh.get_group(axis)
+    seconds = _time_iters(
+        lambda it, salt: _allreduce_loop(x * salt, it, group), iters,
+        settle_s=_settle_s(device), agree_on=device)
+    bytes_moved = 2.0 * n * 2 * (k - 1) / k * iters
+    return bytes_moved / seconds / 1e9
+
+
+def _coords_grid(devices):
+    """Arranges devices into a dense coordinate grid: (ndarray, axis
+    names) with size-1 axes dropped, or (None, None) when the devices
+    don't form one: coords missing (CUDA and CPU devices expose none),
+    duplicated, or sparse (a non-contiguous box). The reference's
+    arrangement logic, unchanged."""
+    coords = [getattr(d, "coords", None) for d in devices]
+    if (any(c is None for c in coords)
+            or len({tuple(c) for c in coords}) != len(devices)):
+        return None, None
+    dims = len(coords[0])
+    lo = [min(c[i] for c in coords) for i in range(dims)]
+    shape = [max(c[i] for c in coords) - lo[i] + 1 for i in range(dims)]
+    if int(np.prod(shape)) != len(devices):
+        return None, None  # sparse box: no well-defined ring per axis
+    grid = np.empty(shape, dtype=object)
+    for d, c in zip(devices, coords):
+        grid[tuple(ci - li for ci, li in zip(c, lo))] = d
+    keep = [i for i, s in enumerate(shape) if s > 1] or [0]
+    return (grid.reshape([shape[i] for i in keep]),
+            tuple("xyz"[i] if i < 3 else f"d{i}" for i in keep))
+
+
+def physical_mesh(devices, device_type):
+    """DeviceMesh over the devices' coordinate grid (axes x/y/z), rank r
+    standing for devices[r], or a flat ("all",) mesh when they form none,
+    as for every CUDA card. Runs on every rank, with the same devices."""
+    grid, names = _coords_grid(devices)
+    if grid is None:
+        return init_device_mesh(device_type, (len(devices),),
+                                mesh_dim_names=("all",))
+    rank_of = {id(d): r for r, d in enumerate(devices)}
+    ranks = np.vectorize(lambda d: rank_of[id(d)], otypes=[np.int64])(grid)
+    return DeviceMesh(device_type, torch.from_numpy(ranks),
+                      mesh_dim_names=names)
+
+
+def ring_shift(tensors, mesh, axis):
+    """Sends this rank's `tensors` to its +1 neighbour along `axis` of
+    `mesh` (in mesh order, wrapping) and returns the -1 neighbour's, in
+    fresh buffers, in one batch_isend_irecv: the reference's
+    lax.ppermute over perm [(i, i + 1 mod n)]. An axis of one rank keeps
+    its own tensors."""
+    dim = mesh.mesh_dim_names.index(axis)
+    coord = mesh.get_coordinate()
+    line = mesh.mesh[tuple(slice(None) if d == dim else c
+                           for d, c in enumerate(coord))].tolist()
+    n, me = len(line), coord[dim]
+    if n == 1:
+        return list(tensors)
+    group = mesh.get_group(axis)
+    dst, src = line[(me + 1) % n], line[(me - 1) % n]
+    tensors = [t.contiguous() for t in tensors]  # what P2P sends take
+    received = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for tag, (t, r) in enumerate(zip(tensors, received)):
+        ops += [dist.P2POp(dist.isend, t, dst, group, tag),
+                dist.P2POp(dist.irecv, r, src, group, tag)]
+    for request in dist.batch_isend_irecv(ops):
+        request.wait()
+    return received
+
+
+def _shift_loop(x, n, mesh, axis):
+    """n ring shifts of x along `axis`."""
+    for _ in range(n):
+        (x,) = ring_shift([x], mesh, axis)
+    return x
+
+
+def ici_axis_gbps(mesh, axis, mib=64, iters=8):
+    """Per-device send throughput (GB/s) around ONE mesh axis, on every
+    rank: each rank's shard of a (rows, 1024) bf16 array of about mib MiB
+    goes to its +1 neighbour on the axis, `iters` times, so the traffic
+    rides that axis's links alone (the reference's ppermute ring)."""
+    n_axis = mesh.size(mesh.mesh_dim_names.index(axis))
+    cols = 1024
+    rows = max(mib * 1024 * 1024 // 2 // cols // n_axis, 1) * n_axis
+    device = resolve_device(mesh.device_type)
+    # ones, not zeros: the salt folds in multiplicatively.
+    x = torch.ones((rows // n_axis, cols), dtype=torch.bfloat16,
+                   device=device)
+    seconds = _time_iters(
+        lambda k, salt: _shift_loop(x * salt, k, mesh, axis), iters,
+        settle_s=_settle_s(device), agree_on=device)
+    bytes_sent_per_device = rows * cols * 2 / n_axis
+    return bytes_sent_per_device * iters / seconds / 1e9
+
+
+def _allreduce_rank(device_type, mib):
+    """Rank body of the all-reduce label: median of 3 over every rank."""
+    mesh = init_device_mesh(device_type, (dist.get_world_size(),),
+                            mesh_dim_names=("all",))
+    return median_probe(lambda: allreduce_gbps(mesh, mib=mib))
+
+
+def _ici_axis_rank(devices, device_type, axis, mib):
+    """Rank body of one ici-<axis>-gbps label: median of 3."""
+    mesh = physical_mesh(devices, device_type)
+    return median_probe(lambda: ici_axis_gbps(mesh, axis, mib=mib))
+
+
 def median_probe(fn, runs=3):
     """Median of `runs` independent probe executions: a single
     differential pair can still catch jitter and read above peak."""
@@ -278,13 +449,17 @@ def health_labels(prefix="google.com/tpu.health.", extended=False,
     failure is written to stderr and leaves ok=true: it is an opt-in
     diagnostic, and the core probes already measured the card.
 
-    With more than one visible card the multi-card probes (all-reduce,
-    per-axis ICI) are not run yet: a note goes to stderr and those labels
-    are left out.
+    With more than one visible card, allreduce-gbps (median of 3) runs
+    over all of them, one rank per card (launch.spawn_ranks: NCCL on the
+    cards); its failure sets ok=false. Then, where the cards form a
+    coordinate grid (_coords_grid; CUDA cards expose none, so never on a
+    CUDA node), one ici-<axis>-gbps label per axis, each in its own try:
+    a failed axis writes a stderr note and leaves ok alone.
     """
     device = resolve_device(device)
     on_card = device.type == "cuda"
-    n_devices = torch.cuda.device_count() if on_card else 1
+    devices = _visible_devices(device)
+    n_devices = len(devices)
     size = 4096 if on_card else 512
     mib = 512 if on_card else 32
     family = family_of(device)
@@ -333,10 +508,26 @@ def health_labels(prefix="google.com/tpu.health.", extended=False,
             except Exception as e:  # noqa: BLE001 — opt-in diagnostic
                 sys.stderr.write(f"dma-copy probe skipped: {e}\n")
         if n_devices > 1:
-            sys.stderr.write(
-                f"allreduce/ici probes not run: {n_devices} cards visible "
-                f"and the multi-card probes are not ported; their labels "
-                f"are omitted\n")
+            labels[prefix + "allreduce-gbps"] = fmt(timed_probe(
+                "allreduce-gbps", lambda: launch.spawn_ranks(
+                    _allreduce_rank, n_devices, device.type,
+                    args=(device.type, 64 if on_card else 8))))
+            try:
+                _, axes = _coords_grid(devices)
+            except Exception as e:  # noqa: BLE001 — hostile coords must
+                # not flip ok=false on cards the core probes measured.
+                sys.stderr.write(f"ici sweep mesh skipped: {e}\n")
+                axes = None
+            for ax in axes or ():
+                try:
+                    labels[prefix + f"ici-{ax}-gbps"] = fmt(timed_probe(
+                        f"ici-{ax}-gbps", lambda ax=ax: launch.spawn_ranks(
+                            _ici_axis_rank, n_devices, device.type,
+                            args=(devices, device.type, ax,
+                                  64 if on_card else 4))))
+                except Exception as e:  # noqa: BLE001 — a localisation
+                    # diagnostic: one axis failing hides no other.
+                    sys.stderr.write(f"ici sweep axis {ax} skipped: {e}\n")
         labels[prefix + "ok"] = "true"
     except Exception as e:  # noqa: BLE001 — any device failure: unhealthy
         sys.stderr.write(f"health probe failed: {e!r}\n")

@@ -8,9 +8,12 @@ measurement lines
     hbm-gbps=<float>
 
 which the daemon's ``--perf-exec`` consumes (``src/tfd/perf/perf.cc``
-accepts nothing else). Classification stays in the daemon. The ICI
-all-reduce measurement (``ici-gbps=``) is not ported yet: with several
-cards visible it is left out and a note goes to stderr.
+accepts nothing else), and with several usable cards
+
+    ici-gbps=<float>
+
+the all-reduce probe of ``tpufd_torch.health`` over them, one rank per
+card. Classification stays in the daemon.
 
 Quarantined cards are excluded: the daemon exports
 TFD_PERF_EXCLUDE_CHIPS=<id,id,...>, matched here against CUDA ordinals.
@@ -61,11 +64,12 @@ def measurement_devices(devices, excluded):
 
 
 def measure(excluded=None, device=None):
-    """Runs the probes (median of 3) on the first non-excluded card and
-    returns {"matmul-tflops": float, "hbm-gbps": float, "ici-gbps": None}.
-    `device` picks the platform: every visible card for "cuda" (the
-    default; raises without one), the host for "cpu"."""
-    from tpufd_torch import health
+    """Runs the probes (median of 3) on the first non-excluded card, plus
+    the all-reduce over all non-excluded cards when there are several,
+    and returns {"matmul-tflops": float, "hbm-gbps": float, "ici-gbps":
+    float|None}. `device` picks the platform: every visible card for
+    "cuda" (the default; raises without one), the host for "cpu"."""
+    from tpufd_torch import health, launch
 
     device = health.resolve_device(device)
     if device.type == "cuda":
@@ -87,8 +91,14 @@ def measure(excluded=None, device=None):
         "ici-gbps": None,
     }
     if len(usable) > 1:
-        sys.stderr.write(f"ici probe not measured: {len(usable)} cards "
-                         f"visible, the multi-card probe is not ported\n")
+        try:
+            out["ici-gbps"] = launch.spawn_ranks(
+                health._allreduce_rank, len(usable), device.type,
+                args=(device.type, 64 if on_card else 8),
+                cards=[d.index for d in usable])
+        except Exception as e:  # noqa: BLE001 — optional context; it must
+            # not fail the matmul/HBM characterization it rides along with.
+            sys.stderr.write(f"ici probe skipped: {e}\n")
     return out
 
 
