@@ -47,8 +47,20 @@ phase catches an exception:
      full attention; allreduce_gbps at 64 MiB (at one rank the reference's
      byte count is 0, so only a finite value is required). With more than
      one card, health_labels must also publish allreduce-gbps;
-  8. a `{"kernels": [...]}` line;
-  9. as the last line, `{"ok": true, "device": {...}}`.
+  8. the daemon: build it from the checkout's C++ sources (cmake +
+     ninja, or g++ from CMakeLists.txt's core sources), start it in
+     daemon mode on the mock v5e-4 topology with --device-health=full
+     execing `tpufd_torch health --extended` and --perf-characterize
+     execing `tpufd_torch perfmodel`, wait for both execs on the card and
+     check the feature file: the health labels (ok, the three probes,
+     none degraded, the enumeration cross-check), the DMA probe's time in
+     the exec's textfile, the perf labels within PERF_TOL of phase 5's
+     line; print what else it published; read its flight recorder with
+     `tpufd_torch journal` over HTTP (probe-ok of health, perf-measure)
+     and from a SIGUSR1 dump; stop it with SIGTERM. Each line carries its
+     wall time since the phase began;
+  9. a `{"kernels": [...]}` line;
+ 10. as the last line, `{"ok": true, "device": {...}}`.
 """
 
 import contextlib
@@ -57,10 +69,16 @@ import json
 import math
 import os
 import re
+import shlex
+import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -73,6 +91,7 @@ from tpufd_torch import health, launch, mesh, metrics, perfmodel
 from tpufd_torch import __main__ as cli
 
 PREFIX = "google.com/tpu.health."
+PERF_PREFIX = "google.com/tpu.perf."  # the daemon's perf labels
 DEVICE = torch.device("cuda", 0)
 PROBE_SHAPE = health._dma_copy_shape(256, 2)  # health --extended's array
 # Burn-in forward, bf16 on the card against float32 on the host: outputs
@@ -99,6 +118,21 @@ FP32_FLOPS = 67e12
 # another order.
 SHARDED_LOSS_RTOL = 1e-2
 RING_TOL = 1e-4  # float32 ring attention against full attention
+REPO = Path(__file__).resolve().parent
+DAEMON = REPO / "build" / "tpu-feature-discovery"
+MOCK_TOPOLOGY = "tests/fixtures/v5e-4.yaml"  # enumerates 4 chips
+MOCK_CHIPS = 4
+# The daemon runs its device-exclusive sources one at a time: health
+# --extended (about 34 s on the card) and perfmodel (about 27 s), each
+# behind an interpreter start, the `torch` import and CUDA init.
+DAEMON_DEADLINE_S = 300
+# The daemon's perf labels against phase 5's in-process line: the probes
+# spread about 2% between runs; a child on the host or on another card
+# reads far outside this.
+PERF_TOL = 0.10
+# Set in the daemon's environment, so every process it starts carries
+# it and none outlives the phase.
+DAEMON_TAG = "TPUFD_CHIP_SMOKE_DAEMON"
 
 
 def fail(message):
@@ -532,13 +566,15 @@ def phase_slice(family, copy_gbps):
     probe_iteration_times("dma-copy-gbps",
                           health._dma_copy_probe_fn(DEVICE, 256, 2), 64)
     chain_step_split()
-    return launches
+    return launches, labels, seconds
 
 
 def phase_perfmodel():
     out = io.StringIO()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = perfmodel.main(device=DEVICE)
+    seconds = time.perf_counter() - t0
     lines = out.getvalue().splitlines()
     require(rc == 0, f"perfmodel.main returned {rc}")
     keys = []
@@ -550,7 +586,8 @@ def phase_perfmodel():
         keys.append(match.group(1))
     require(keys[:2] == ["matmul-tflops", "hbm-gbps"],
             f"perfmodel printed {lines}")
-    print(f"[5 perfmodel] {' '.join(lines)}")
+    print(f"[5 perfmodel] {' '.join(lines)} in {seconds:.1f} s")
+    return dict(line.split("=") for line in lines), seconds
 
 
 def phase_burnin():
@@ -753,6 +790,264 @@ def phase_multicard(one_card_loss):
               f"allreduce-gbps={labels[PREFIX + 'allreduce-gbps']}")
 
 
+def run_or_fail(argv, what):
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True)
+    require(proc.returncode == 0,
+            f"{what} exited {proc.returncode}: "
+            f"{(proc.stdout + proc.stderr)[-3000:]}")
+
+
+def build_daemon():
+    """Builds build/tpu-feature-discovery from the checkout's C++
+    sources: cmake + ninja where both are on PATH; otherwise g++ on the
+    core sources CMakeLists.txt lists plus the daemon's main.cc, one
+    compile per source in parallel, then one link. Returns the route."""
+    build = REPO / "build"
+    if shutil.which("cmake") and shutil.which("ninja"):
+        run_or_fail(["cmake", "-S", str(REPO), "-B", str(build), "-G",
+                     "Ninja"], "cmake")
+        run_or_fail(["ninja", "-C", str(build), DAEMON.name], "ninja")
+        return "cmake + ninja"
+    obj_dir = build / "obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    version = (REPO / "VERSION").read_text().strip()
+    common = ["g++", "-std=c++17", "-O1", f"-I{REPO}/src",
+              f"-I{REPO}/third_party", f'-DTFD_VERSION="{version}"',
+              '-DTFD_GIT_COMMIT="unknown"']
+    sources = [s for s in re.findall(r"^\s+(src/tfd/\S+\.cc)$",
+                                     (REPO / "CMakeLists.txt").read_text(),
+                                     flags=re.M)
+               if "tests/" not in s and "testing/" not in s]
+    objects = [str(obj_dir / (s.replace("/", "_") + ".o")) for s in sources]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as pool:
+        for job in [pool.submit(run_or_fail,
+                                [*common, "-c", str(REPO / s), "-o", o],
+                                f"g++ {s}")
+                    for s, o in zip(sources, objects)]:
+            job.result()
+    run_or_fail([*common, str(REPO / "cmd/tpu-feature-discovery/main.cc"),
+                 *objects, "-o", str(DAEMON), "-ldl", "-lpthread"],
+                "g++ link")
+    return f"g++ ({len(sources)} core sources + main.cc)"
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def kill_tagged(tag):
+    """SIGKILLs every process whose environment carries DAEMON_TAG=tag:
+    the daemon and whatever it started, orphans included."""
+    marker = f"{DAEMON_TAG}={tag}".encode()
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit() or int(entry.name) == os.getpid():
+            continue
+        try:
+            if marker in (entry / "environ").read_bytes().split(b"\0"):
+                os.kill(int(entry.name), signal.SIGKILL)
+        except OSError:  # gone meanwhile, or not ours to read
+            pass
+
+
+def feature_labels(path):
+    try:
+        return dict(line.split("=", 1)
+                    for line in path.read_text().splitlines() if "=" in line)
+    except FileNotFoundError:
+        return {}
+
+
+def stderr_tail(path, lines=40):
+    return "\n".join(path.read_text(errors="replace").splitlines()[-lines:])
+
+
+def port_journal(env, *args):
+    """`python -m tpufd_torch journal ARGS`: its stdout; fails the run if
+    the command fails."""
+    proc = subprocess.run([sys.executable, "-m", "tpufd_torch", "journal",
+                           *args], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=60)
+    require(proc.returncode == 0,
+            f"journal {' '.join(args)} exited {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def perf_label_value(value):
+    """A perf measurement as the daemon renders its label
+    (src/tfd/perf/perf.cc BuildLabels): the whole number from 10 up, two
+    significant digits below."""
+    return str(int(value)) if value >= 10 else f"{value:.2g}"
+
+
+def phase_daemon(slice_run, perf_run):
+    """Phase 8: the port under the real daemon (see the module doc)."""
+    slice_labels, slice_seconds = slice_run
+    perf_values, perf_seconds = perf_run
+    t0 = time.perf_counter()
+
+    def say(text):
+        print(f"[8 daemon +{time.perf_counter() - t0:.1f} s] {text}")
+
+    route = build_daemon()
+    say(f"built {DAEMON.relative_to(REPO)} by {route} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()  # this process keeps its CUDA context
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        out_file, dump, prom = tmp / "tfd", tmp / "dump.json", tmp / "h.prom"
+        python = shlex.quote(sys.executable)
+        health_exec = (f"{python} -m tpufd_torch health --extended "
+                       f"--metrics-out {shlex.quote(str(prom))}")
+        perf_exec = f"{python} -m tpufd_torch perfmodel"
+        # Prepended, not replaced: a site may register plugins through it.
+        env = {**os.environ, "GCE_METADATA_HOST": "127.0.0.1:1",
+               DAEMON_TAG: tmp_name,
+               "PYTHONPATH": os.pathsep.join(
+                   p for p in (str(REPO), os.environ.get("PYTHONPATH"))
+                   if p)}
+        argv = [str(DAEMON), "--sleep-interval=1s", "--backend=mock",
+                f"--mock-topology-file={MOCK_TOPOLOGY}",
+                "--machine-type-file=/dev/null",
+                f"--output-file={out_file}", f"--state-file={tmp / 'state'}",
+                f"--debug-dump-file={dump}",
+                f"--introspection-addr=127.0.0.1:{port}",
+                # Room for every event of the run: the mock source alone
+                # journals a probe each second.
+                "--journal-capacity=4096",
+                "--device-health=full", f"--health-exec={health_exec}",
+                "--perf-characterize", f"--perf-exec={perf_exec}",
+                "--rated-specs-file=tpufd_torch/rated_specs.json"]
+        stderr_path = tmp / "daemon.stderr"
+        with open(stderr_path, "wb") as stderr:
+            proc = subprocess.Popen(argv, cwd=REPO, env=env, stderr=stderr,
+                                    stdout=subprocess.DEVNULL)
+        try:
+            say(f"daemon pid {proc.pid} on 127.0.0.1:{port}: health exec "
+                f"`{health_exec}`, perf exec `{perf_exec}`")
+            deadline = time.monotonic() + DAEMON_DEADLINE_S
+            seen = set()
+            while True:
+                labels = feature_labels(out_file)
+                require(proc.poll() is None,
+                        f"daemon exited {proc.returncode}:\n"
+                        f"{stderr_tail(stderr_path)}")
+                # The basic health layer publishes ok before the exec
+                # lands; dma-copy-gbps comes from the exec alone.
+                for key in (PREFIX + "dma-copy-gbps",
+                            PERF_PREFIX + "matmul-tflops"):
+                    if key in labels and key not in seen:
+                        seen.add(key)
+                        say(f"{key}={labels[key]} in the feature file")
+                require(labels.get(PREFIX + "ok") != "false",
+                        f"health exec failed under the daemon: {labels}\n"
+                        f"{stderr_tail(stderr_path)}")
+                if len(seen) == 2:
+                    break
+                require(time.monotonic() < deadline,
+                        f"no health and perf labels within "
+                        f"{DAEMON_DEADLINE_S} s: {labels}\n"
+                        f"{stderr_tail(stderr_path)}")
+                time.sleep(0.5)
+
+            n_cards = torch.cuda.device_count()
+            for leaf in ("matmul-tflops", "hbm-gbps", "dma-copy-gbps"):
+                value = labels.get(PREFIX + leaf)
+                require(value is not None and float(value) > 0,
+                        f"{leaf} missing or not positive: {labels}")
+                require(PREFIX + leaf + "-degraded" not in labels,
+                        f"{leaf} degraded under the daemon: {labels}")
+                if health.family_of(DEVICE) is not None:
+                    require(PREFIX + leaf + "-pct-of-rated" in labels,
+                            f"{leaf}-pct-of-rated missing: {labels}")
+                inproc = slice_labels[PREFIX + leaf]
+                say(f"health {leaf}: daemon {value}, phase 4 in-process "
+                    f"{inproc} (ratio {float(value) / float(inproc):.4f})")
+            consistent = "true" if n_cards == MOCK_CHIPS else "false"
+            require(labels.get(PREFIX + "devices-consistent")
+                    == consistent and (consistent == "true" or labels.get(
+                        PREFIX + "devices-jax") == str(n_cards)),
+                    f"enumeration cross-check against {MOCK_CHIPS} mock "
+                    f"chips and {n_cards} card(s): {labels}")
+            text = prom.read_text()
+            dma = '{probe="dma-copy-gbps"}'
+            runs = sample(text, "tpufd_probe_duration_seconds_count", dma)
+            require(runs >= 1, "no DMA probe in the exec's textfile")
+            say(f"health exec textfile: DMA probe ran {runs:.0f} time(s) in "
+                f"{sample(text, 'tpufd_probe_duration_seconds_sum', dma):.2f}"
+                f" s; devices-consistent={consistent} ({MOCK_CHIPS} mock "
+                f"chips, {n_cards} card(s))")
+            for leaf in ("matmul-tflops", "hbm-gbps"):
+                value = float(labels.get(PERF_PREFIX + leaf, "0"))
+                want = float(perf_values[leaf])
+                require(abs(value - want) <= PERF_TOL * want,
+                        f"perf {leaf}={value} under the daemon against "
+                        f"{want} in-process (tol {PERF_TOL})")
+                say(f"perf {leaf}: daemon {value:g}, phase 5 in-process "
+                    f"{want:g} (ratio {value / want:.4f})")
+            shown = {k: v for k, v in sorted(labels.items())
+                     if k.startswith(PERF_PREFIX) or "pct-of-rated" in k
+                     or k in ("google.com/tpu.family",
+                              "google.com/tpu.count")}
+            say(f"also published (not asserted): {shown}")
+
+            probe_ok = port_journal(env, "--url", f"http://127.0.0.1:{port}",
+                                    "--type", "probe-ok")
+            match = re.search(r" probe-ok \[health\]: .*\n\s+"
+                              r"duration_s='([0-9.]+)'", probe_ok)
+            require(match is not None,
+                    f"no probe-ok event of source health:\n{probe_ok}")
+            say(f"journal --type probe-ok: {probe_ok.count(' probe-ok ')} "
+                f"events; health exec {float(match.group(1)):.1f} s under "
+                f"the daemon against phase 4's {slice_seconds:.1f} s "
+                f"in-process")
+            measured = json.loads(port_journal(
+                env, "--url", f"http://127.0.0.1:{port}", "--type",
+                "perf-measure", "--raw"))["events"]
+            require(measured, "no perf-measure event")
+            fields = measured[-1]["fields"]
+            require(perf_label_value(float(fields["matmul_tflops"]))
+                    == labels[PERF_PREFIX + "matmul-tflops"],
+                    f"perf-measure matmul_tflops {fields['matmul_tflops']} "
+                    f"is not the label's "
+                    f"{labels[PERF_PREFIX + 'matmul-tflops']}")
+            say(f"journal --type perf-measure --raw: perf exec "
+                f"{fields['duration_s']} s under the daemon against phase "
+                f"5's {perf_seconds:.1f} s in-process; "
+                + ", ".join(f"{k}={fields[k]}" for k in
+                            ("matmul_tflops", "hbm_gbps", "pct_of_rated",
+                             "class", "reason")))
+
+            proc.send_signal(signal.SIGUSR1)
+            deadline = time.monotonic() + 30
+            while True:
+                try:
+                    json.loads(dump.read_text())
+                    break
+                except (FileNotFoundError, json.JSONDecodeError):
+                    require(time.monotonic() < deadline,
+                            "no SIGUSR1 dump within 30 s")
+                    time.sleep(0.2)
+            lines = port_journal(env, "--file", str(dump)).splitlines()
+            dumps = [line for line in lines
+                     if re.match(r"  #\d+ \S+ g\d+ dump: ", line)]
+            require(lines[0].startswith("journal: ") and dumps,
+                    f"journal --file printed no dump event: {lines[:3]}")
+            say(f"journal --file (SIGUSR1 dump): {lines[0]}; "
+                f"{dumps[-1].strip()}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+            say(f"daemon stopped by SIGTERM, exit {rc}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            kill_tagged(tmp_name)
+
+
 def main():
     family = phase_card()
     phase_build()
@@ -760,12 +1055,14 @@ def main():
     kernels = [phase_kernel(family), phase_chain_tail(family)]
     phase_matmul_read(3, "after the kernel checks")
     moved = 2 * PROBE_SHAPE[0] * PROBE_SHAPE[1] * 2  # bf16, read + write
-    launches = phase_slice(family, moved / kernels[0]["library_ms"] / 1e6)
+    launches, slice_labels, slice_seconds = phase_slice(
+        family, moved / kernels[0]["library_ms"] / 1e6)
     for kernel in kernels:
         kernel["launches"] = launches[kernel["name"]]
-    phase_perfmodel()
+    perf_run = phase_perfmodel()
     phase_burnin()
     phase_multicard(phase_train())
+    phase_daemon((slice_labels, slice_seconds), perf_run)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

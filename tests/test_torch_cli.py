@@ -1,7 +1,7 @@
 """`python -m tpufd_torch` as the daemon and operators run it: the health
 command's label lines and metrics textfile, the perfmodel command's bare
 lines, the burnin command's report, and the real daemon merging the
-port's labels into its feature file."""
+port's health labels and perf measurements into its feature file."""
 
 import os
 import re
@@ -131,6 +131,44 @@ def test_daemon_merges_port_health_labels(tfd_binary, tmp_path):
     assert float(labels[PREFIX + "hbm-gbps"]) > 0
     assert labels[PREFIX + "devices-consistent"] == "false"
     assert labels[PREFIX + "devices-jax"] == "1"
+
+
+def daemon_perf_labels(binary, out_file, perf_exec, env):
+    """The google.com/tpu.perf.* labels of one oneshot daemon pass that
+    characterizes through `perf_exec` (v5e-4 mock: family v5e, whose
+    rating is in the daemon's baked table)."""
+    proc = subprocess.run(
+        [str(binary), "--oneshot", f"--output-file={out_file}",
+         "--backend=mock", f"--mock-topology-file={FIXTURES / 'v5e-4.yaml'}",
+         "--machine-type-file=/dev/null", "--perf-characterize",
+         f"--perf-exec={perf_exec}"],
+        env={**env, "GCE_METADATA_HOST": "127.0.0.1:1"},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return {k: v for k, v in labels_of(out_file.read_text()).items()
+            if k.startswith("google.com/tpu.perf.")}
+
+
+def test_daemon_takes_port_perf_exec_like_the_reference(tfd_binary,
+                                                        tmp_path):
+    """The real daemon with --perf-characterize execs the port's
+    perfmodel and publishes the same perf label keys as with the
+    reference's, each run on one host device."""
+    env = {**os.environ, "PYTHONPATH": str(REPO), "JAX_PLATFORMS": "cpu"}
+    # One CPU device for the reference, as the port sees one host: with
+    # several, it would add the all-reduce's ici-gbps.
+    env.pop("XLA_FLAGS", None)
+    port = daemon_perf_labels(
+        tfd_binary, tmp_path / "port", "python3 -m tpufd_torch perfmodel "
+        "--device cpu", env)
+    ref = daemon_perf_labels(tfd_binary, tmp_path / "ref",
+                             "python3 -m tpufd perfmodel", env)
+    assert set(port) == set(ref) == {
+        "google.com/tpu.perf." + leaf for leaf in
+        ("matmul-tflops", "hbm-gbps", "pct-of-rated", "class")}
+    for labels in (port, ref):
+        assert float(labels["google.com/tpu.perf.matmul-tflops"]) > 0
+        assert float(labels["google.com/tpu.perf.hbm-gbps"]) > 0
 
 
 class FakeSpawn:

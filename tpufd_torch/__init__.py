@@ -9,6 +9,8 @@ accelerator *does*, on an NVIDIA GPU:
                            PyTorch version and its launch counter
   - tpufd_torch.perfmodel: bare measurement lines for --perf-exec
   - tpufd_torch.burnin:    the burn-in MLP block (forward)
+  - tpufd_torch.journal:   the daemon's flight recorder, parsed and
+                           printed (``python -m tpufd_torch journal``)
 
 It imports torch, never jax, and nothing of ``tpufd``. Its entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.

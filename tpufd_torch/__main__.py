@@ -11,9 +11,12 @@
                                      over every card when there are
                                      several, then ring attention across
                                      them, and report the final loss
+  python -m tpufd_torch journal    — fetch a daemon's /debug/journal (or
+                                     read a SIGUSR1 dump file) and
+                                     pretty-print the flight recorder
 
-All run on the CUDA card and fail without one, unless --device cpu asks
-for the host.
+health, perfmodel and burnin run on the CUDA card and fail without one,
+unless --device cpu asks for the host; journal touches no device.
 """
 
 import argparse
@@ -80,6 +83,31 @@ def cmd_perfmodel(args):
     return perfmodel.main(device=args.device)
 
 
+def cmd_journal(args):
+    import json
+    import urllib.request
+
+    from tpufd_torch import journal as journal_lib
+
+    if args.file:
+        with open(args.file) as f:
+            doc = json.load(f)
+        # A SIGUSR1 dump embeds the journal next to snapshots/labels.
+        if "journal" in doc:
+            doc = doc["journal"]
+    else:
+        url = (f"{args.url.rstrip('/')}/debug/journal"
+               f"?n={args.n}&type={args.type}")
+        with urllib.request.urlopen(url, timeout=5) as r:
+            doc = json.load(r)
+    doc = journal_lib.parse_journal(doc)
+    if args.raw:
+        print(json.dumps(doc, indent=2))
+    else:
+        print(journal_lib.dump_text(doc))
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpufd_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -130,6 +158,23 @@ def main(argv=None):
              "payload). Honors TFD_PERF_EXCLUDE_CHIPS=<ordinal,...>")
     add_device(perfmodel)
     perfmodel.set_defaults(fn=cmd_perfmodel)
+
+    journal = sub.add_parser(
+        "journal", help="pretty-print a daemon's flight recorder")
+    journal.add_argument(
+        "--url", default="http://127.0.0.1:8081",
+        help="daemon introspection base URL (serves /debug/journal)")
+    journal.add_argument(
+        "--file", default="",
+        help="read a SIGUSR1 dump (or raw /debug/journal JSON) from a "
+             "file instead of fetching")
+    journal.add_argument("--n", type=int, default=0,
+                         help="newest N events (0 = all retained)")
+    journal.add_argument("--type", default="",
+                         help="filter by event type (e.g. label-diff)")
+    journal.add_argument("--raw", action="store_true",
+                         help="print the JSON instead of pretty text")
+    journal.set_defaults(fn=cmd_journal)
 
     args = parser.parse_args(argv)
     return args.fn(args)
