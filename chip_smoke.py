@@ -45,20 +45,35 @@ phase catches an exception:
      collectives of one sharded step counted by CommDebugMode; ring
      attention in both modes at the reference's defaults, within 1e-4 of
      full attention; allreduce_gbps at 64 MiB (at one rank the reference's
-     byte count is 0, so only a finite value is required). With more than
-     one card, health_labels must also publish allreduce-gbps;
+     byte count is 0, so only a finite value is required); then, in a
+     process group of its own as the `burnin` command runs it,
+     burnin.ring_acceptance, both modes within 1e-4, and its time from
+     spawn to result. With more than one card, health_labels must also
+     publish allreduce-gbps;
   8. the daemon: build it from the checkout's C++ sources (cmake +
-     ninja, or g++ from CMakeLists.txt's core sources), start it in
-     daemon mode on the mock v5e-4 topology with --device-health=full
-     execing `tpufd_torch health --extended` and --perf-characterize
-     execing `tpufd_torch perfmodel`, wait for both execs on the card and
-     check the feature file: the health labels (ok, the three probes,
-     none degraded, the enumeration cross-check), the DMA probe's time in
-     the exec's textfile, the perf labels within PERF_TOL of phase 5's
-     line; print what else it published; read its flight recorder with
-     `tpufd_torch journal` over HTTP (probe-ok of health, perf-measure)
-     and from a SIGUSR1 dump; stop it with SIGTERM. Each line carries its
-     wall time since the phase began;
+     ninja, or g++ from CMakeLists.txt's core sources); fill a kernel
+     directory with `python -m tpufd_torch._build`, from which every
+     exec of the phase loads its kernels (TPUFD_TORCH_KERNEL_DIR set, no
+     directory holding nvcc on PATH); split a fresh exec's start-up
+     (`python -X importtime`, the first CUDA op, loading and first
+     launching the kernels). Then start the daemon on the mock v5e-4
+     topology with --device-health=full execing `tpufd_torch health
+     --extended` and --perf-characterize execing `tpufd_torch perfmodel`,
+     wait for both execs on the card and check the feature file: the
+     health labels (ok, the three probes, none degraded, each within
+     PERF_TOL of phase 4's, the enumeration cross-check), the DMA probe's
+     time in the exec's textfile, the perf labels within PERF_TOL of
+     phase 5's line; print what else it published; read its flight
+     recorder with `tpufd_torch journal` over HTTP (probe-ok of health,
+     perf-measure) and from a SIGUSR1 dump; stop it with SIGTERM. Then
+     start it again with --device-health=off and the in-tree
+     device-health plugin in its --plugin-dir, execing the same health
+     command through TFD_PLUGIN_HEALTH_EXEC under --plugin-timeout
+     PLUGIN_TIMEOUT_S, and check the same health labels, a
+     plugin-discovered and no plugin-kill event. The kernel directory
+     must be unchanged after the execs. Each line carries its wall time
+     since the phase began; the last compares the health exec's wall
+     time in-process, under the daemon and behind the plugin;
   9. a `{"kernels": [...]}` line;
  10. as the last line, `{"ok": true, "device": {...}}`.
 """
@@ -133,6 +148,11 @@ PERF_TOL = 0.10
 # Set in the daemon's environment, so every process it starts carries
 # it and none outlives the phase.
 DAEMON_TAG = "TPUFD_CHIP_SMOKE_DAEMON"
+PLUGIN = REPO / "deployments" / "plugins" / "device-health"
+# The plugin's kill deadline. --plugin-timeout defaults to 30 s, and
+# health --extended took 40-44 s under the daemon: the plugin would be
+# killed and publish ok=false.
+PLUGIN_TIMEOUT_S = 180
 
 
 def fail(message):
@@ -781,6 +801,20 @@ def phase_multicard(one_card_loss):
              if world == 1 else ""))
     print(f"[7 multi-card] spawn, rendezvous, NCCL init and the rank work: "
           f"{spawn_s:.2f} s")
+    # The multi-card `burnin` command's second process group: the ring
+    # check alone, each mode agreed over a gloo group beside NCCL.
+    t0 = time.perf_counter()
+    rings = launch.spawn_ranks(burnin.ring_acceptance, world, "cuda",
+                               args=("cuda",), timeout=240)["ring"]
+    ring_s = time.perf_counter() - t0
+    require([mode for mode, _, _ in rings] == list(burnin.RING_MODES) and all(
+        error is None and err <= RING_TOL for _, err, error in rings),
+            f"ring_acceptance over {world} rank(s): {rings}")
+    print(f"[7 multi-card] ring_acceptance in a process group of its own "
+          f"(the `burnin` command's second spawn): "
+          + ", ".join(f"{mode} max abs err {err:.3g}"
+                      for mode, err, _ in rings)
+          + f"; {ring_s:.2f} s from spawn to result")
     if world > 1:
         labels = health.health_labels(extended=False, device=DEVICE)
         require(labels.get(PREFIX + "ok") == "true" and float(
@@ -882,10 +916,349 @@ def perf_label_value(value):
     return str(int(value)) if value >= 10 else f"{value:.2g}"
 
 
+def deployment_env(tag, kernel_dir):
+    """The daemon's environment as a node without the CUDA toolkit gives
+    it: the kernel libraries built ahead in `kernel_dir`, no directory
+    holding nvcc on PATH, and `tag`, which every process it starts
+    inherits."""
+    path = [p for p in os.environ.get("PATH", "").split(os.pathsep)
+            if p and not (Path(p) / "nvcc").exists()]
+    # PYTHONPATH is prepended, not replaced: a site may register plugins
+    # through it.
+    return {**os.environ, "GCE_METADATA_HOST": "127.0.0.1:1", DAEMON_TAG: tag,
+            _build.KERNEL_DIR_ENV: str(kernel_dir),
+            "PATH": os.pathsep.join(path),
+            "PYTHONPATH": os.pathsep.join(
+                p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)}
+
+
+def kernel_listing(directory):
+    """Every file of `directory`: name, size and modification time."""
+    return sorted((p.name, p.stat().st_size, p.stat().st_mtime_ns)
+                  for p in directory.iterdir())
+
+
+def build_ahead(kernel_dir, say):
+    """`python -m tpufd_torch._build` into `kernel_dir`, as an image build
+    runs it on a machine with the toolkit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpufd_torch._build"], cwd=REPO,
+        env={**os.environ, _build.KERNEL_DIR_ENV: str(kernel_dir)},
+        capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0,
+            f"`{_build.BUILD_AHEAD}` exited {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    require([line.split()[0] for line in lines] == list(_build.KERNELS),
+            f"`{_build.BUILD_AHEAD}` printed {lines}")
+    say(f"`{_build.BUILD_AHEAD}` in {time.perf_counter() - t0:.1f} s: "
+        f"{'; '.join(lines)}")
+
+
+# A fresh `python -m tpufd_torch health` up to its first probe: the
+# command's imports, the first CUDA op, each kernel's library loaded, then
+# each kernel launched once. Prints its clock marks as one JSON line.
+STARTUP_CHILD = """
+import json, time
+marks = {"start": time.time()}
+import tpufd_torch.__main__
+from tpufd_torch import health
+marks["imported"] = time.time()
+import torch
+torch.ones(1, device="cuda").add_(1)
+torch.cuda.synchronize()
+marks["cuda"] = time.time()
+from tpufd_torch import chain_tail, dma_copy
+chain_tail._kernel()
+dma_copy._kernel()
+marks["loaded"] = time.time()
+x = torch.zeros((2, 8), dtype=torch.bfloat16, device="cuda")
+chain_tail.chain_tail(x, x.clone())
+dma_copy.dma_copy(x, 1, 1)
+torch.cuda.synchronize()
+marks["launched"] = time.time()
+print(json.dumps(marks))
+"""
+
+
+def startup_split(env, say):
+    """Where a fresh exec's start-up goes, STARTUP_CHILD run in the
+    daemon's environment: the interpreter and site, the imports, the first
+    CUDA op, loading and first launching the kernels, and exiting. Then
+    the same child under `python -X importtime`: its total import time,
+    and the largest imports one level below the top (a module's cost
+    counts where it was first imported). Returns the plain run's wall
+    seconds."""
+    def child(*flags):
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, *flags, "-c", STARTUP_CHILD],
+                              cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=300)
+        wall = time.time() - t0
+        require(proc.returncode == 0, f"start-up child exited "
+                f"{proc.returncode}: {proc.stderr[-3000:]}")
+        marks = json.loads(proc.stdout.splitlines()[-1])
+        return wall, {
+            "interpreter and site": marks["start"] - t0,
+            "imports": marks["imported"] - marks["start"],
+            "first CUDA op": marks["cuda"] - marks["imported"],
+            "kernel libraries loaded": marks["loaded"] - marks["cuda"],
+            "first kernel launches": marks["launched"] - marks["loaded"],
+            "exit": t0 + wall - marks["launched"]}, proc.stderr
+
+    wall, split, _ = child()
+    say(f"start-up of a fresh exec, {wall:.2f} s in all: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
+    profiled, split, stderr = child("-X", "importtime")
+    rows = [m for m in (re.fullmatch(r"import time:\s+(\d+) \|\s+(\d+) \| "
+                                     r"( *)(\S+)", line)
+                        for line in stderr.splitlines()) if m]
+    top = sorted(((int(m.group(2)), m.group(4)) for m in rows
+                  if len(m.group(3)) == 2), reverse=True)[:8]
+    total = sum(int(m.group(1)) for m in rows) / 1e6
+    say(f"    under -X importtime ({profiled:.2f} s in all, imports "
+        f"{split['imports']:.3f} s): {total:.3f} s in {len(rows)} imports; "
+        f"largest one level down (cumulative): "
+        + ", ".join(f"{name} {us / 1e6:.3f} s" for us, name in top))
+    return wall
+
+
+@contextlib.contextmanager
+def daemon(argv, env, stderr_path):
+    """The daemon started in daemon mode; on any exit it is killed if
+    still running, and so is every process carrying env's tag."""
+    with open(stderr_path, "wb") as stderr:
+        proc = subprocess.Popen(argv, cwd=REPO, env=env, stderr=stderr,
+                                stdout=subprocess.DEVNULL)
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        kill_tagged(env[DAEMON_TAG])
+
+
+def wait_for_labels(proc, out_file, keys, stderr_path, say):
+    """The feature file's labels once every one of `keys` is in it; fails
+    if the daemon exits, publishes health ok=false, or takes longer than
+    DAEMON_DEADLINE_S. The basic health layer may publish ok before an
+    exec lands, so `keys` are labels the execs alone publish."""
+    deadline = time.monotonic() + DAEMON_DEADLINE_S
+    seen = set()
+    while True:
+        labels = feature_labels(out_file)
+        require(proc.poll() is None,
+                f"daemon exited {proc.returncode}:\n"
+                f"{stderr_tail(stderr_path)}")
+        for key in keys:
+            if key in labels and key not in seen:
+                seen.add(key)
+                say(f"{key}={labels[key]} in the feature file")
+        require(labels.get(PREFIX + "ok") != "false",
+                f"health exec failed under the daemon: {labels}\n"
+                f"{stderr_tail(stderr_path)}")
+        if len(seen) == len(keys):
+            return labels
+        require(time.monotonic() < deadline,
+                f"no {keys} within {DAEMON_DEADLINE_S} s: {labels}\n"
+                f"{stderr_tail(stderr_path)}")
+        time.sleep(0.5)
+
+
+def check_health_labels(labels, slice_labels, prom, how, say):
+    """The exec's health labels under the daemon: ok, the three probes
+    positive, none degraded, each within PERF_TOL of phase 4's in-process
+    read, the enumeration cross-check against the mock chips, and the DMA
+    probe's time in the exec's textfile `prom`."""
+    require(labels.get(PREFIX + "ok") == "true",
+            f"ok is not true {how}: {labels}")
+    n_cards = torch.cuda.device_count()
+    for leaf in ("matmul-tflops", "hbm-gbps", "dma-copy-gbps"):
+        value = labels.get(PREFIX + leaf)
+        require(value is not None and float(value) > 0,
+                f"{leaf} missing or not positive {how}: {labels}")
+        require(PREFIX + leaf + "-degraded" not in labels,
+                f"{leaf} degraded {how}: {labels}")
+        if health.family_of(DEVICE) is not None:
+            require(PREFIX + leaf + "-pct-of-rated" in labels,
+                    f"{leaf}-pct-of-rated missing {how}: {labels}")
+        inproc = float(slice_labels[PREFIX + leaf])
+        ratio = float(value) / inproc
+        require(abs(ratio - 1) <= PERF_TOL,
+                f"health {leaf}={value} {how} against {inproc:g} in-process "
+                f"(tol {PERF_TOL})")
+        say(f"health {leaf}: {value} {how}, phase 4 in-process {inproc:g} "
+            f"(ratio {ratio:.4f})")
+    consistent = "true" if n_cards == MOCK_CHIPS else "false"
+    require(labels.get(PREFIX + "devices-consistent") == consistent and (
+        consistent == "true"
+        or labels.get(PREFIX + "devices-jax") == str(n_cards)),
+            f"enumeration cross-check against {MOCK_CHIPS} mock chips and "
+            f"{n_cards} card(s) {how}: {labels}")
+    text = prom.read_text()
+    dma = '{probe="dma-copy-gbps"}'
+    runs = sample(text, "tpufd_probe_duration_seconds_count", dma)
+    require(runs >= 1, f"no DMA probe in the exec's textfile {how}")
+    say(f"health exec textfile: DMA probe ran {runs:.0f} time(s) in "
+        f"{sample(text, 'tpufd_probe_duration_seconds_sum', dma):.2f} s; "
+        f"devices-consistent={consistent} ({MOCK_CHIPS} mock chips, "
+        f"{n_cards} card(s))")
+
+
+def journal_events(env, port, kind):
+    """The daemon's journal events of type `kind`, read with
+    `tpufd_torch journal --raw` over HTTP."""
+    return json.loads(port_journal(env, "--url", f"http://127.0.0.1:{port}",
+                                   "--type", kind, "--raw"))["events"]
+
+
+def probe_seconds(env, port, source):
+    """duration_s of the newest probe-ok event of `source`."""
+    events = [e for e in journal_events(env, port, "probe-ok")
+              if e.get("source") == source]
+    require(events, f"no probe-ok event of source {source}")
+    return float(events[-1]["fields"]["duration_s"])
+
+
+def stop(proc, say):
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=30)
+    say(f"daemon stopped by SIGTERM, exit {rc}")
+
+
+def daemon_exec_run(env, tmp, slice_labels, perf_run, say):
+    """The daemon with --device-health=full execing `tpufd_torch health
+    --extended` and --perf-characterize execing `tpufd_torch perfmodel`;
+    returns the health exec's wall seconds under it."""
+    perf_values, perf_seconds = perf_run
+    out_file, dump, prom = tmp / "tfd", tmp / "dump.json", tmp / "h.prom"
+    python = shlex.quote(sys.executable)
+    health_exec = (f"{python} -m tpufd_torch health --extended "
+                   f"--metrics-out {shlex.quote(str(prom))}")
+    perf_exec = f"{python} -m tpufd_torch perfmodel"
+    port = free_port()
+    argv = [str(DAEMON), "--sleep-interval=1s", "--backend=mock",
+            f"--mock-topology-file={MOCK_TOPOLOGY}",
+            "--machine-type-file=/dev/null",
+            f"--output-file={out_file}", f"--state-file={tmp / 'state'}",
+            f"--debug-dump-file={dump}",
+            f"--introspection-addr=127.0.0.1:{port}",
+            # Room for every event of the run: the mock source alone
+            # journals a probe each second.
+            "--journal-capacity=4096",
+            "--device-health=full", f"--health-exec={health_exec}",
+            "--perf-characterize", f"--perf-exec={perf_exec}",
+            "--rated-specs-file=tpufd_torch/rated_specs.json"]
+    stderr_path = tmp / "daemon.stderr"
+    with daemon(argv, env, stderr_path) as proc:
+        say(f"daemon pid {proc.pid} on 127.0.0.1:{port}: health exec "
+            f"`{health_exec}`, perf exec `{perf_exec}`")
+        labels = wait_for_labels(proc, out_file, (
+            PREFIX + "dma-copy-gbps", PERF_PREFIX + "matmul-tflops"),
+            stderr_path, say)
+        check_health_labels(labels, slice_labels, prom, "under the daemon",
+                            say)
+        for leaf in ("matmul-tflops", "hbm-gbps"):
+            value = float(labels.get(PERF_PREFIX + leaf, "0"))
+            want = float(perf_values[leaf])
+            require(abs(value - want) <= PERF_TOL * want,
+                    f"perf {leaf}={value} under the daemon against "
+                    f"{want} in-process (tol {PERF_TOL})")
+            say(f"perf {leaf}: daemon {value:g}, phase 5 in-process "
+                f"{want:g} (ratio {value / want:.4f})")
+        shown = {k: v for k, v in sorted(labels.items())
+                 if k.startswith(PERF_PREFIX) or "pct-of-rated" in k
+                 or k in ("google.com/tpu.family", "google.com/tpu.count")}
+        say(f"also published (not asserted): {shown}")
+
+        exec_seconds = probe_seconds(env, port, "health")
+        say(f"journal --type probe-ok: health exec {exec_seconds:.1f} s "
+            f"under the daemon")
+        measured = journal_events(env, port, "perf-measure")
+        require(measured, "no perf-measure event")
+        fields = measured[-1]["fields"]
+        require(perf_label_value(float(fields["matmul_tflops"]))
+                == labels[PERF_PREFIX + "matmul-tflops"],
+                f"perf-measure matmul_tflops {fields['matmul_tflops']} "
+                f"is not the label's "
+                f"{labels[PERF_PREFIX + 'matmul-tflops']}")
+        say(f"journal --type perf-measure --raw: perf exec "
+            f"{fields['duration_s']} s under the daemon against phase "
+            f"5's {perf_seconds:.1f} s in-process; "
+            + ", ".join(f"{k}={fields[k]}" for k in
+                        ("matmul_tflops", "hbm_gbps", "pct_of_rated",
+                         "class", "reason")))
+
+        proc.send_signal(signal.SIGUSR1)
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                json.loads(dump.read_text())
+                break
+            except (FileNotFoundError, json.JSONDecodeError):
+                require(time.monotonic() < deadline,
+                        "no SIGUSR1 dump within 30 s")
+                time.sleep(0.2)
+        lines = port_journal(env, "--file", str(dump)).splitlines()
+        dumps = [line for line in lines
+                 if re.match(r"  #\d+ \S+ g\d+ dump: ", line)]
+        require(lines[0].startswith("journal: ") and dumps,
+                f"journal --file printed no dump event: {lines[:3]}")
+        say(f"journal --file (SIGUSR1 dump): {lines[0]}; "
+            f"{dumps[-1].strip()}")
+        stop(proc, say)
+    return exec_seconds
+
+
+def plugin_run(env, tmp, slice_labels, say):
+    """The daemon with --device-health=off and the in-tree device-health
+    plugin in its --plugin-dir, the plugin execing `tpufd_torch health
+    --extended` through TFD_PLUGIN_HEALTH_EXEC under a raised
+    --plugin-timeout; returns the plugin round's wall seconds."""
+    plugin_dir = tmp / "plugins"
+    plugin_dir.mkdir()
+    shutil.copyfile(PLUGIN, plugin_dir / PLUGIN.name)
+    (plugin_dir / PLUGIN.name).chmod(0o755)
+    out_file, prom = tmp / "tfd-plugin", tmp / "plugin.prom"
+    health_exec = (f"{shlex.quote(sys.executable)} -m tpufd_torch health "
+                   f"--extended --metrics-out {shlex.quote(str(prom))}")
+    port = free_port()
+    argv = [str(DAEMON), "--sleep-interval=1s", "--backend=mock",
+            f"--mock-topology-file={MOCK_TOPOLOGY}",
+            "--machine-type-file=/dev/null", f"--output-file={out_file}",
+            f"--introspection-addr=127.0.0.1:{port}",
+            "--journal-capacity=4096", "--device-health=off",
+            f"--plugin-dir={plugin_dir}",
+            f"--plugin-timeout={PLUGIN_TIMEOUT_S}s"]
+    stderr_path = tmp / "daemon-plugin.stderr"
+    with daemon(argv, {**env, "TFD_PLUGIN_HEALTH_EXEC": health_exec},
+                stderr_path) as proc:
+        say(f"daemon pid {proc.pid} on 127.0.0.1:{port}: --device-health="
+            f"off, the device-health plugin in {plugin_dir} under "
+            f"--plugin-timeout={PLUGIN_TIMEOUT_S}s, TFD_PLUGIN_HEALTH_EXEC="
+            f"`{health_exec}`")
+        labels = wait_for_labels(proc, out_file, (PREFIX + "dma-copy-gbps",),
+                                 stderr_path, say)
+        check_health_labels(labels, slice_labels, prom,
+                            "behind the plugin", say)
+        discovered = [e for e in journal_events(env, port,
+                                                "plugin-discovered")
+                      if e["fields"].get("plugin") == PLUGIN.name]
+        kills = journal_events(env, port, "plugin-kill")
+        require(discovered and not kills,
+                f"plugin-discovered {discovered}, plugin-kill {kills}")
+        seconds = probe_seconds(env, port, "plugin." + PLUGIN.name)
+        say(f"journal: plugin-discovered {PLUGIN.name}, no plugin-kill; "
+            f"the plugin round (its exec) {seconds:.1f} s")
+        stop(proc, say)
+    return seconds
+
+
 def phase_daemon(slice_run, perf_run):
     """Phase 8: the port under the real daemon (see the module doc)."""
     slice_labels, slice_seconds = slice_run
-    perf_values, perf_seconds = perf_run
     t0 = time.perf_counter()
 
     def say(text):
@@ -895,157 +1268,26 @@ def phase_daemon(slice_run, perf_run):
     say(f"built {DAEMON.relative_to(REPO)} by {route} in "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()  # this process keeps its CUDA context
-    port = free_port()
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
-        out_file, dump, prom = tmp / "tfd", tmp / "dump.json", tmp / "h.prom"
-        python = shlex.quote(sys.executable)
-        health_exec = (f"{python} -m tpufd_torch health --extended "
-                       f"--metrics-out {shlex.quote(str(prom))}")
-        perf_exec = f"{python} -m tpufd_torch perfmodel"
-        # Prepended, not replaced: a site may register plugins through it.
-        env = {**os.environ, "GCE_METADATA_HOST": "127.0.0.1:1",
-               DAEMON_TAG: tmp_name,
-               "PYTHONPATH": os.pathsep.join(
-                   p for p in (str(REPO), os.environ.get("PYTHONPATH"))
-                   if p)}
-        argv = [str(DAEMON), "--sleep-interval=1s", "--backend=mock",
-                f"--mock-topology-file={MOCK_TOPOLOGY}",
-                "--machine-type-file=/dev/null",
-                f"--output-file={out_file}", f"--state-file={tmp / 'state'}",
-                f"--debug-dump-file={dump}",
-                f"--introspection-addr=127.0.0.1:{port}",
-                # Room for every event of the run: the mock source alone
-                # journals a probe each second.
-                "--journal-capacity=4096",
-                "--device-health=full", f"--health-exec={health_exec}",
-                "--perf-characterize", f"--perf-exec={perf_exec}",
-                "--rated-specs-file=tpufd_torch/rated_specs.json"]
-        stderr_path = tmp / "daemon.stderr"
-        with open(stderr_path, "wb") as stderr:
-            proc = subprocess.Popen(argv, cwd=REPO, env=env, stderr=stderr,
-                                    stdout=subprocess.DEVNULL)
-        try:
-            say(f"daemon pid {proc.pid} on 127.0.0.1:{port}: health exec "
-                f"`{health_exec}`, perf exec `{perf_exec}`")
-            deadline = time.monotonic() + DAEMON_DEADLINE_S
-            seen = set()
-            while True:
-                labels = feature_labels(out_file)
-                require(proc.poll() is None,
-                        f"daemon exited {proc.returncode}:\n"
-                        f"{stderr_tail(stderr_path)}")
-                # The basic health layer publishes ok before the exec
-                # lands; dma-copy-gbps comes from the exec alone.
-                for key in (PREFIX + "dma-copy-gbps",
-                            PERF_PREFIX + "matmul-tflops"):
-                    if key in labels and key not in seen:
-                        seen.add(key)
-                        say(f"{key}={labels[key]} in the feature file")
-                require(labels.get(PREFIX + "ok") != "false",
-                        f"health exec failed under the daemon: {labels}\n"
-                        f"{stderr_tail(stderr_path)}")
-                if len(seen) == 2:
-                    break
-                require(time.monotonic() < deadline,
-                        f"no health and perf labels within "
-                        f"{DAEMON_DEADLINE_S} s: {labels}\n"
-                        f"{stderr_tail(stderr_path)}")
-                time.sleep(0.5)
-
-            n_cards = torch.cuda.device_count()
-            for leaf in ("matmul-tflops", "hbm-gbps", "dma-copy-gbps"):
-                value = labels.get(PREFIX + leaf)
-                require(value is not None and float(value) > 0,
-                        f"{leaf} missing or not positive: {labels}")
-                require(PREFIX + leaf + "-degraded" not in labels,
-                        f"{leaf} degraded under the daemon: {labels}")
-                if health.family_of(DEVICE) is not None:
-                    require(PREFIX + leaf + "-pct-of-rated" in labels,
-                            f"{leaf}-pct-of-rated missing: {labels}")
-                inproc = slice_labels[PREFIX + leaf]
-                say(f"health {leaf}: daemon {value}, phase 4 in-process "
-                    f"{inproc} (ratio {float(value) / float(inproc):.4f})")
-            consistent = "true" if n_cards == MOCK_CHIPS else "false"
-            require(labels.get(PREFIX + "devices-consistent")
-                    == consistent and (consistent == "true" or labels.get(
-                        PREFIX + "devices-jax") == str(n_cards)),
-                    f"enumeration cross-check against {MOCK_CHIPS} mock "
-                    f"chips and {n_cards} card(s): {labels}")
-            text = prom.read_text()
-            dma = '{probe="dma-copy-gbps"}'
-            runs = sample(text, "tpufd_probe_duration_seconds_count", dma)
-            require(runs >= 1, "no DMA probe in the exec's textfile")
-            say(f"health exec textfile: DMA probe ran {runs:.0f} time(s) in "
-                f"{sample(text, 'tpufd_probe_duration_seconds_sum', dma):.2f}"
-                f" s; devices-consistent={consistent} ({MOCK_CHIPS} mock "
-                f"chips, {n_cards} card(s))")
-            for leaf in ("matmul-tflops", "hbm-gbps"):
-                value = float(labels.get(PERF_PREFIX + leaf, "0"))
-                want = float(perf_values[leaf])
-                require(abs(value - want) <= PERF_TOL * want,
-                        f"perf {leaf}={value} under the daemon against "
-                        f"{want} in-process (tol {PERF_TOL})")
-                say(f"perf {leaf}: daemon {value:g}, phase 5 in-process "
-                    f"{want:g} (ratio {value / want:.4f})")
-            shown = {k: v for k, v in sorted(labels.items())
-                     if k.startswith(PERF_PREFIX) or "pct-of-rated" in k
-                     or k in ("google.com/tpu.family",
-                              "google.com/tpu.count")}
-            say(f"also published (not asserted): {shown}")
-
-            probe_ok = port_journal(env, "--url", f"http://127.0.0.1:{port}",
-                                    "--type", "probe-ok")
-            match = re.search(r" probe-ok \[health\]: .*\n\s+"
-                              r"duration_s='([0-9.]+)'", probe_ok)
-            require(match is not None,
-                    f"no probe-ok event of source health:\n{probe_ok}")
-            say(f"journal --type probe-ok: {probe_ok.count(' probe-ok ')} "
-                f"events; health exec {float(match.group(1)):.1f} s under "
-                f"the daemon against phase 4's {slice_seconds:.1f} s "
-                f"in-process")
-            measured = json.loads(port_journal(
-                env, "--url", f"http://127.0.0.1:{port}", "--type",
-                "perf-measure", "--raw"))["events"]
-            require(measured, "no perf-measure event")
-            fields = measured[-1]["fields"]
-            require(perf_label_value(float(fields["matmul_tflops"]))
-                    == labels[PERF_PREFIX + "matmul-tflops"],
-                    f"perf-measure matmul_tflops {fields['matmul_tflops']} "
-                    f"is not the label's "
-                    f"{labels[PERF_PREFIX + 'matmul-tflops']}")
-            say(f"journal --type perf-measure --raw: perf exec "
-                f"{fields['duration_s']} s under the daemon against phase "
-                f"5's {perf_seconds:.1f} s in-process; "
-                + ", ".join(f"{k}={fields[k]}" for k in
-                            ("matmul_tflops", "hbm_gbps", "pct_of_rated",
-                             "class", "reason")))
-
-            proc.send_signal(signal.SIGUSR1)
-            deadline = time.monotonic() + 30
-            while True:
-                try:
-                    json.loads(dump.read_text())
-                    break
-                except (FileNotFoundError, json.JSONDecodeError):
-                    require(time.monotonic() < deadline,
-                            "no SIGUSR1 dump within 30 s")
-                    time.sleep(0.2)
-            lines = port_journal(env, "--file", str(dump)).splitlines()
-            dumps = [line for line in lines
-                     if re.match(r"  #\d+ \S+ g\d+ dump: ", line)]
-            require(lines[0].startswith("journal: ") and dumps,
-                    f"journal --file printed no dump event: {lines[:3]}")
-            say(f"journal --file (SIGUSR1 dump): {lines[0]}; "
-                f"{dumps[-1].strip()}")
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=30)
-            say(f"daemon stopped by SIGTERM, exit {rc}")
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=30)
-            kill_tagged(tmp_name)
+        kernel_dir = tmp / "kernels"
+        build_ahead(kernel_dir, say)
+        libraries = kernel_listing(kernel_dir)
+        env = deployment_env(tmp_name, kernel_dir)
+        say(f"the execs run with {_build.KERNEL_DIR_ENV}={kernel_dir} and "
+            f"PATH={env['PATH']}")
+        startup = startup_split(env, say)
+        full = daemon_exec_run(env, tmp, slice_labels, perf_run, say)
+        plugin = plugin_run(env, tmp, slice_labels, say)
+        require(kernel_listing(kernel_dir) == libraries,
+                f"the execs changed {kernel_dir}: {libraries} became "
+                f"{kernel_listing(kernel_dir)}")
+        say(f"{kernel_dir} unchanged after the execs ({len(libraries)} "
+            f"files): no kernel was compiled at run time")
+    say(f"health --extended wall time: in-process (phase 4) "
+        f"{slice_seconds:.1f} s; under --device-health=full {full:.1f} s; "
+        f"behind the device-health plugin {plugin:.1f} s; a fresh exec's "
+        f"start-up to its first probe {startup:.2f} s")
 
 
 def main():

@@ -172,30 +172,45 @@ def test_daemon_takes_port_perf_exec_like_the_reference(tfd_binary,
 
 
 class FakeSpawn:
-    """launch.spawn_ranks stand-in for the multi-card burnin command."""
+    """launch.spawn_ranks stand-in for the multi-card burnin command: the
+    sharded step's call returns a loss; the ring call returns both modes,
+    the causal one failed with `ring_error`, or raises `ring_raises`."""
 
-    def __init__(self, ring_error=None):
+    def __init__(self, ring_error=None, ring_raises=None):
         self.calls = []
         self.ring_error = ring_error
+        self.ring_raises = ring_raises
 
     def __call__(self, fn, world, device_type, args=(), **kwargs):
         self.calls.append((fn.__name__, world, device_type, args))
-        ring = [] if not args[3] else [
+        if fn.__name__ == "sharded_loss":
+            return {"loss": 1.25, "metrics": ""}
+        if self.ring_raises is not None:
+            raise self.ring_raises
+        return {"ring": [
             ("bidirectional", 2.5e-7, None),
-            ("causal", None if self.ring_error else 3.5e-7, self.ring_error)]
-        return {"loss": 1.25, "ring": ring}
+            ("causal", None if self.ring_error else 3.5e-7, self.ring_error)],
+            "metrics": ""}
 
 
-@pytest.mark.parametrize("argv, ring, error", [
-    ([], True, None),
-    (["--skip-ring"], False, None),
-    (["--model-parallelism", "1"], True, "causal ring attention diverged"),
+RANK_DIED = RuntimeError("rank 1 of 2 failed:\nTraceback (most recent call "
+                         "last):\n  File ...\nRuntimeError: NCCL error: "
+                         "remote process exited")
+
+
+@pytest.mark.parametrize("argv, ring, error, raises", [
+    ([], True, None, None),
+    (["--skip-ring"], False, None, None),
+    (["--model-parallelism", "1"], True, "causal ring attention diverged",
+     None),
+    ([], True, None, RANK_DIED),
 ])
 def test_burnin_cli_spawns_one_nccl_rank_per_card(monkeypatch, capsys, argv,
-                                                  ring, error):
-    """With two visible cards the command runs the sharded step and both
-    ring modes on one NCCL rank per card, and prints the reference's
-    lines; a diverged ring mode prints FAILED and exits 1."""
+                                                  ring, error, raises):
+    """With two visible cards the command runs the sharded step on one
+    NCCL rank per card, prints the loss, then runs both ring modes in a
+    second process group and prints the reference's lines; a failed ring
+    mode, or a ring call that raised, prints FAILED and exits 1."""
     import torch
 
     from tpufd_torch import __main__ as cli
@@ -206,12 +221,12 @@ def test_burnin_cli_spawns_one_nccl_rank_per_card(monkeypatch, capsys, argv,
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda device=None: "NVIDIA H100 80GB HBM3")
-    spawn = FakeSpawn(ring_error=error)
+    spawn = FakeSpawn(ring_error=error, ring_raises=raises)
     monkeypatch.setattr(launch, "spawn_ranks", spawn)
     rc = cli.main(["burnin", "--steps", "3", *argv])
     mp = 1 if "--model-parallelism" in argv else None
-    assert spawn.calls == [("sharded_acceptance", 2, "cuda",
-                            ("cuda", 3, mp, ring, ""))]
+    assert spawn.calls == [("sharded_loss", 2, "cuda", ("cuda", 3, mp))] + (
+        [("ring_acceptance", 2, "cuda", ("cuda",))] if ring else [])
     lines = capsys.readouterr().out.splitlines()
     assert lines[:3] == [
         "devices: 2 x NVIDIA H100 80GB HBM3",
@@ -219,6 +234,11 @@ def test_burnin_cli_spawns_one_nccl_rank_per_card(monkeypatch, capsys, argv,
         "final loss after 3 steps: 1.250000 (ok)"]
     if not ring:
         assert len(lines) == 3 and rc == 0
+    elif raises is not None:
+        assert lines[3:] == [
+            f"{mode} ring attention FAILED: rank 1 of 2 failed: "
+            f"RuntimeError: NCCL error: remote process exited"
+            for mode in ("bidirectional", "causal")] and rc == 1
     elif error is None:
         assert lines[3:] == [
             "bidirectional ring attention over context=2: max abs err "

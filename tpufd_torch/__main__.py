@@ -52,28 +52,44 @@ def cmd_burnin(args):
     if n_cards == 1:
         loss = burnin.run_burnin(device=device, steps=args.steps,
                                  model_parallelism=args.model_parallelism)
-        rings = []
-        if args.metrics_out:
-            metrics.default_registry().write_textfile(args.metrics_out)
+        texts = [metrics.default_registry().render()]
     else:
-        # One NCCL rank per card: the sharded step over a (data, model)
-        # mesh, then ring attention over all cards, each checked for
-        # equality against full attention.
+        # One NCCL rank per card for the sharded step over a (data,
+        # model) mesh; the ring check below runs in a process group of
+        # its own, so a ring that fails cannot take the loss with it.
         result = launch.spawn_ranks(
-            burnin.sharded_acceptance, n_cards, "cuda",
-            args=("cuda", args.steps, args.model_parallelism,
-                  not args.skip_ring, args.metrics_out))
-        loss, rings = result["loss"], result["ring"]
+            burnin.sharded_loss, n_cards, "cuda",
+            args=("cuda", args.steps, args.model_parallelism))
+        loss, texts = result["loss"], [result["metrics"]]
     ok = math.isfinite(loss)
     print(f"final loss after {args.steps} steps: {loss:.6f} "
           f"({'ok' if ok else 'NOT FINITE'})")
-    for mode, err, error in rings:
-        if error is None:
-            print(f"{mode} ring attention over context={n_cards}: max abs "
-                  f"err {err:.2e} vs full attention (ok)")
-        else:
-            print(f"{mode} ring attention FAILED: {error}")
-            ok = False
+    if ok and n_cards > 1 and not args.skip_ring:
+        # Ring attention over all cards, each mode checked for equality
+        # against full attention. A failed process group (a rank that
+        # raised alone, died or hung) fails every mode.
+        try:
+            result = launch.spawn_ranks(burnin.ring_acceptance, n_cards,
+                                        "cuda", args=("cuda",))
+            rings = result["ring"]
+            texts.append(result["metrics"])
+        except (RuntimeError, TimeoutError) as e:
+            print(f"ring attention ranks failed: {e}", file=sys.stderr)
+            # One line: the launcher's first ("rank 1 of 2 failed:") and
+            # the rank's exception, the last of its traceback.
+            lines = str(e).strip().splitlines() or [repr(e)]
+            summary = (lines[0] if len(lines) == 1
+                       else f"{lines[0]} {lines[-1]}")
+            rings = [(mode, None, summary) for mode in burnin.RING_MODES]
+        for mode, err, error in rings:
+            if error is None:
+                print(f"{mode} ring attention over context={n_cards}: max "
+                      f"abs err {err:.2e} vs full attention (ok)")
+            else:
+                print(f"{mode} ring attention FAILED: {error}")
+                ok = False
+    if args.metrics_out:
+        metrics.write_textfile(args.metrics_out, "".join(texts))
     return 0 if ok else 1
 
 

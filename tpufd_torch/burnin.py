@@ -14,12 +14,15 @@ DTensor placements stand for its NamedShardings (``param_placements``,
 ``ring_attention`` is the reference's context-parallel attention: kv
 blocks rotate around one mesh axis by point-to-point exchange under a
 streaming softmax, checked against ``full_attention`` by
-``run_ring_attention_burnin``. ``sharded_acceptance`` is the rank-side
-body of the multi-card ``burnin`` command and of the hermetic dry run.
+``run_ring_attention_burnin``. ``sharded_loss`` and ``ring_acceptance``
+are the rank-side bodies of the multi-card ``burnin`` command, one
+process group each; ``sharded_acceptance`` runs both in one, for the
+hermetic dry run.
 Mesh functions run on every rank of the process group (see
 ``tpufd_torch.launch``).
 """
 
+import datetime
 import math
 import time
 
@@ -281,6 +284,13 @@ class RingDivergedError(RuntimeError):
     """Ring attention disagreed with full attention, on every rank."""
 
 
+RING_MODES = ("bidirectional", "causal")  # the reference's order
+# How long a rank waits, after a ring mode, for every rank's outcome of
+# it. Ranks arrive within the mode's own run time of each other unless
+# one is stuck in an exchange that a failed rank left.
+RING_AGREE_TIMEOUT_S = 60
+
+
 def run_ring_attention_burnin(mesh, axis=None, heads=2, seq=None, d_head=64,
                               dtype=torch.float32, causal=False):
     """Runs ring_attention over `axis` of `mesh` (default its first) on
@@ -322,28 +332,73 @@ def run_ring_attention_burnin(mesh, axis=None, heads=2, seq=None, d_head=64,
     return err
 
 
-def sharded_acceptance(device_type, steps, model_parallelism=None, ring=True,
-                       metrics_out=""):
-    """The multi-card burn-in, run by every rank of a process group
-    (launch.spawn_ranks) on `device_type`: the sharded train step over a
-    data_model_mesh of every rank, then, if the loss is finite and `ring`
-    is set, ring attention in both modes over a ('context',) mesh of
-    every rank. Rank 0 writes the metrics textfile to `metrics_out` if
-    one is named. Returns {"loss": float, "ring": [(mode, err or None,
-    error text or None)]}, the same on every rank."""
+def sharded_loss(device_type, steps, model_parallelism=None):
+    """The multi-card burn-in's train step, run by every rank of a
+    process group (launch.spawn_ranks) on `device_type`: run_burnin over
+    a data_model_mesh of every rank. Returns {"loss": float, "metrics":
+    this rank's telemetry as textfile text}."""
     mesh = mesh_lib.data_model_mesh(device_type, model_parallelism)
     loss = run_burnin(mesh=mesh, steps=steps)
+    return {"loss": loss, "metrics": metrics.default_registry().render()}
+
+
+def ring_acceptance(device_type):
+    """The multi-card burn-in's ring check, run by every rank of a process
+    group: run_ring_attention_burnin in each of RING_MODES over a
+    ('context',) mesh of every rank.
+
+    Every rank runs the same collectives in the same order. After each
+    mode the ranks agree on its outcome over a gloo group made first (on
+    the host, so a broken NCCL communicator leaves it working): the mode
+    failed if any rank raised a RuntimeError in it, be it divergence,
+    which every rank sees alike, or an error of one rank alone. A rank
+    whose peers do not reach the agreement within RING_AGREE_TIMEOUT_S
+    (one is stuck in the exchange a failed rank left) raises, so the
+    launcher ends the call.
+
+    Returns {"ring": [(mode, err or None, error text or None)], "metrics":
+    this rank's telemetry as textfile text}, the ring the same on every
+    rank. An error every rank raised alike keeps its text; otherwise the
+    text of the lowest failed rank is prefixed with "rank r of n: "."""
+    world = dist.get_world_size()
+    agree = dist.new_group(
+        backend="gloo",
+        timeout=datetime.timedelta(seconds=RING_AGREE_TIMEOUT_S))
+    ring_mesh = init_device_mesh(device_type, (world,),
+                                 mesh_dim_names=("context",))
     rings = []
-    if ring and math.isfinite(loss):
-        ring_mesh = init_device_mesh(device_type, (dist.get_world_size(),),
-                                     mesh_dim_names=("context",))
-        for causal in (False, True):
-            mode = "causal" if causal else "bidirectional"
-            try:
-                rings.append((mode, run_ring_attention_burnin(
-                    ring_mesh, causal=causal), None))
-            except RingDivergedError as e:  # agreed on every rank
-                rings.append((mode, None, str(e)))
-    if metrics_out and dist.get_rank() == 0:
-        metrics.default_registry().write_textfile(metrics_out)
+    for mode in RING_MODES:
+        try:
+            err, error = run_ring_attention_burnin(
+                ring_mesh, causal=mode == "causal"), None
+        except RuntimeError as e:  # the peers learn of it below
+            err, error = None, str(e) or repr(e)
+        errors = [None] * world
+        try:
+            dist.all_gather_object(errors, error, group=agree)
+        except RuntimeError as e:
+            raise RuntimeError(
+                error or f"{mode} ring attention: the ranks did not agree "
+                         f"within {RING_AGREE_TIMEOUT_S} s ({e})") from e
+        failed = {r: text for r, text in enumerate(errors)
+                  if text is not None}
+        if not failed:
+            rings.append((mode, err, None))
+        elif len(failed) == world and len(set(failed.values())) == 1:
+            rings.append((mode, None, errors[0]))
+        else:
+            first = min(failed)
+            rings.append((mode, None,
+                          f"rank {first} of {world}: {failed[first]}"))
+    return {"ring": rings, "metrics": metrics.default_registry().render()}
+
+
+def sharded_acceptance(device_type, steps):
+    """The whole multi-card burn-in in one process group, as the hermetic
+    dry run runs it: sharded_loss, then, if the loss is finite,
+    ring_acceptance. Returns {"loss": float, "ring": [(mode, err or None,
+    error text or None)]}, the same on every rank."""
+    loss = sharded_loss(device_type, steps)["loss"]
+    rings = ring_acceptance(device_type)["ring"] if math.isfinite(
+        loss) else []
     return {"loss": loss, "ring": rings}

@@ -228,16 +228,21 @@ class Registry:
             return "\n".join(out) + "\n" if out else ""
 
     def write_textfile(self, path):
-        """Atomic textfile-collector write: render to `path.tmp`, fsync,
-        rename — a scraper never sees a torn file."""
-        text = self.render()
-        tmp = f"{path}.tmp.{os.getpid()}"
-        with open(tmp, "w") as f:
-            f.write(text)
-            f.flush()
-            os.fsync(f.fileno())
-        os.rename(tmp, path)
-        return text
+        """Writes the rendered registry to `path` (write_textfile below);
+        returns the text."""
+        return write_textfile(path, self.render())
+
+
+def write_textfile(path, text):
+    """Atomic textfile-collector write: `text` to `path.tmp`, fsync,
+    rename — a scraper never sees a torn file. Returns the text."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+    os.rename(tmp, path)
+    return text
 
 
 _DEFAULT = Registry()

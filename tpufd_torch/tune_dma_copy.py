@@ -4,8 +4,8 @@
 
 Builds ``csrc/dma_copy.cu`` once per (tile KiB, stages, stores in flight)
 candidate, one nvcc each with -D flags, all started together, into
-``build/torch_kernels/tune/``, and checks each bit-exact at the probe's
-shape (131072 x 1024 bf16 in 2 chunks). Then, in turns, ``rounds``
+``tune/`` under ``_build.kernel_dir()``, and checks each bit-exact at the
+probe's shape (131072 x 1024 bf16 in 2 chunks). Then, in turns, ``rounds``
 times: every candidate at n 16, the shipped one also at n 4 and 64 (its
 time per repeat stays flat in n when every repeat comes from HBM) and in
 1 and 4 chunks, and one whole-array ``copy_``. Prints the card's
@@ -41,7 +41,7 @@ def name_of(candidate):
 def build(candidate):
     """Starts nvcc for one candidate: (process, library path)."""
     tile, stages, stores = candidate
-    target = (_build.BUILD_DIR / "tune"
+    target = (_build.kernel_dir() / "tune"
               / f"libdma_copy-{name_of(candidate)}.so")
     target.parent.mkdir(parents=True, exist_ok=True)
     cmd = _build.nvcc_command("dma_copy", target)
