@@ -61,16 +61,26 @@ phase catches an exception:
      --extended` and --perf-characterize execing `tpufd_torch perfmodel`,
      wait for both execs on the card and check the feature file: the
      health labels (ok, the three probes, none degraded, each within
-     PERF_TOL of phase 4's, the enumeration cross-check), the DMA probe's
-     time in the exec's textfile, the perf labels within PERF_TOL of
+     PERF_TOL of phase 4's, the enumeration cross-check), the exec's
+     textfile (it passes metrics.validate_exposition, tpufd_health_ok
+     reads 1, the DMA probe's time), the perf labels within PERF_TOL of
      phase 5's line; print what else it published; read its flight
      recorder with `tpufd_torch journal` over HTTP (probe-ok of health,
-     perf-measure) and from a SIGUSR1 dump; stop it with SIGTERM. Then
-     start it again with --device-health=off and the in-tree
-     device-health plugin in its --plugin-dir, execing the same health
-     command through TFD_PLUGIN_HEALTH_EXEC under --plugin-timeout
-     PLUGIN_TIMEOUT_S, and check the same health labels, a
-     plugin-discovered and no plugin-kill event. The kernel directory
+     perf-measure) and from a SIGUSR1 dump. The daemon rates the perf
+     exec's readings by a stand-in --rated-specs-file that gives the
+     mock's family (v5e) this card's figures: its tpu.perf.* labels
+     (pct-of-rated and class among them) must equal
+     perfmodel.expected_labels of the newest perf-measure event's
+     readings, classed by perfmodel.classify. The whole journal, merged
+     by journal.merge_events over two scrapes, must hold no health
+     transition that the port's healthsm calls illegal; stop it with
+     SIGTERM. Then start it again with --device-health=off and the
+     in-tree device-health plugin in its --plugin-dir, execing the same
+     health command through TFD_PLUGIN_HEALTH_EXEC under
+     --plugin-timeout PLUGIN_TIMEOUT_S, and check the same health labels
+     and textfile, a plugin-discovered and no plugin-kill event, no
+     illegal health transition and no plugin.plugin_violations. The
+     kernel directory
      must be unchanged after the execs. Each line carries its wall time
      since the phase began; the last compares the health exec's wall
      time in-process, under the daemon and behind the plugin;
@@ -102,7 +112,8 @@ from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.debug import CommDebugMode
 
 from tpufd_torch import _build, burnin, chain_tail, dma_copy, graft_entry
-from tpufd_torch import health, launch, mesh, metrics, perfmodel
+from tpufd_torch import health, healthsm, journal, launch, mesh, metrics
+from tpufd_torch import perfmodel, plugin
 from tpufd_torch import __main__ as cli
 
 PREFIX = "google.com/tpu.health."
@@ -137,6 +148,7 @@ REPO = Path(__file__).resolve().parent
 DAEMON = REPO / "build" / "tpu-feature-discovery"
 MOCK_TOPOLOGY = "tests/fixtures/v5e-4.yaml"  # enumerates 4 chips
 MOCK_CHIPS = 4
+MOCK_FAMILY = "v5e"  # the family the daemon rates the mock's chips by
 # The daemon runs its device-exclusive sources one at a time: health
 # --extended (about 34 s on the card) and perfmodel (about 27 s), each
 # behind an interpreter start, the `torch` import and CUDA init.
@@ -630,12 +642,13 @@ def phase_burnin():
           f"{BURNIN_ATOL})")
 
 
-def sample(text, name, labels=""):
-    """The value of sample `name{labels}` in a Prometheus textfile."""
-    match = re.search(rf"^{re.escape(name + labels)} (\S+)$", text,
-                      flags=re.M)
-    require(match is not None, f"{name}{labels} missing from the textfile")
-    return float(match.group(1))
+def sample(text, name, labels=None):
+    """The value of sample `name` carrying `labels` in a Prometheus
+    textfile, read by metrics.sample_value; fails the run if absent."""
+    value = metrics.sample_value(text, name, labels)
+    require(value is not None, f"{name}{labels or ''} missing from the "
+            f"textfile")
+    return value
 
 
 def phase_train():
@@ -663,7 +676,7 @@ def phase_train():
             text = f.read()
     hist = "tpufd_burnin_step_duration_seconds_count"
     for phase in ("compile", "steady"):
-        require(sample(text, hist, f'{{phase="{phase}"}}') >= 1,
+        require(sample(text, hist, {"phase": phase}) >= 1,
                 f"no {phase} step in the burnin textfile")
     require(abs(sample(text, "tpufd_burnin_final_loss")
                 - float(match.group(1))) <= 1e-6,
@@ -909,11 +922,61 @@ def port_journal(env, *args):
     return proc.stdout
 
 
-def perf_label_value(value):
-    """A perf measurement as the daemon renders its label
-    (src/tfd/perf/perf.cc BuildLabels): the whole number from 10 up, two
-    significant digits below."""
-    return str(int(value)) if value >= 10 else f"{value:.2g}"
+def scrape_journal(env, port, events):
+    """Merges the daemon's whole journal, read with `tpufd_torch journal
+    --raw` over HTTP, into `events` ({seq: event}) by
+    journal.merge_events; returns `events`."""
+    doc = journal.parse_journal(port_journal(
+        env, "--url", f"http://127.0.0.1:{port}", "--raw"))
+    return journal.merge_events(events, doc)
+
+
+def check_transitions(events, how, say):
+    """Every health-transition the daemon journaled is an edge of the
+    port's healthsm."""
+    transitions = healthsm.health_transitions(events)
+    illegal = healthsm.illegal_transitions(events)
+    require(not illegal, f"illegal health transitions {how}: {illegal}")
+    say(f"healthsm: {len(events)} journal events merged {how}, "
+        f"{len(transitions)} health transition(s), none illegal"
+        + (f": {transitions}" if transitions else ""))
+
+
+def stand_in_rated_specs(tmp):
+    """A --rated-specs-file rating the mock topology's family at this
+    card's figures from tpufd_torch/rated_specs.json. A stand-in: the
+    daemon has no CUDA family, and the file replaces its baked table
+    whole, so the port's readings are rated against the card under the
+    name `v5e`. Returns (path, the card's family, the specs)."""
+    family = health.family_of(DEVICE)
+    if family is None:
+        fail(f"{torch.cuda.get_device_name(DEVICE)} has no rated figures "
+             f"in tpufd_torch/rated_specs.json")
+    specs = {MOCK_FAMILY: perfmodel.load_rated_specs()[family]}
+    path = tmp / "rated_specs.json"
+    path.write_text(json.dumps({"families": specs}))
+    return path, family, specs
+
+
+def check_perf_class(labels, fields, family, specs, say):
+    """The daemon's tpu.perf.* labels equal perfmodel.expected_labels of
+    the perf-measure event's readings, classed by perfmodel.classify of
+    their percentages of the stand-in rating."""
+    matmul, hbm, ici = (float(fields[k]) for k in
+                        ("matmul_tflops", "hbm_gbps", "ici_gbps"))
+    rated = specs[MOCK_FAMILY]
+    class_name = perfmodel.classify(
+        perfmodel.pct_of_rated(matmul, rated["matmul_tflops"]),
+        perfmodel.pct_of_rated(hbm, rated["hbm_gbps"]))
+    want = perfmodel.expected_labels(matmul, hbm, ici, MOCK_FAMILY,
+                                     class_name, specs=specs)
+    got = {k: v for k, v in labels.items() if k.startswith(PERF_PREFIX)}
+    require(got == want, f"the daemon's perf labels {got} are not "
+            f"perfmodel.expected_labels {want}")
+    say(f"perf class rated against {family} {rated} (as {MOCK_FAMILY}): "
+        f"the daemon published {got}; perfmodel.expected_labels of "
+        f"perf-measure matmul_tflops={fields['matmul_tflops']} "
+        f"hbm_gbps={fields['hbm_gbps']} gives {want}")
 
 
 def deployment_env(tag, kernel_dir):
@@ -1098,10 +1161,15 @@ def check_health_labels(labels, slice_labels, prom, how, say):
             f"enumeration cross-check against {MOCK_CHIPS} mock chips and "
             f"{n_cards} card(s) {how}: {labels}")
     text = prom.read_text()
-    dma = '{probe="dma-copy-gbps"}'
+    metrics.validate_exposition(text)
+    require(sample(text, "tpufd_health_ok") == 1,
+            f"tpufd_health_ok is not 1 in the exec's textfile {how}")
+    dma = {"probe": "dma-copy-gbps"}
     runs = sample(text, "tpufd_probe_duration_seconds_count", dma)
     require(runs >= 1, f"no DMA probe in the exec's textfile {how}")
-    say(f"health exec textfile: DMA probe ran {runs:.0f} time(s) in "
+    say(f"health exec textfile: passes metrics.validate_exposition "
+        f"({len(list(metrics.parse_samples(text)))} samples), "
+        f"tpufd_health_ok 1; DMA probe ran {runs:.0f} time(s) in "
         f"{sample(text, 'tpufd_probe_duration_seconds_sum', dma):.2f} s; "
         f"devices-consistent={consistent} ({MOCK_CHIPS} mock chips, "
         f"{n_cards} card(s))")
@@ -1138,6 +1206,7 @@ def daemon_exec_run(env, tmp, slice_labels, perf_run, say):
     health_exec = (f"{python} -m tpufd_torch health --extended "
                    f"--metrics-out {shlex.quote(str(prom))}")
     perf_exec = f"{python} -m tpufd_torch perfmodel"
+    rated_specs, family, specs = stand_in_rated_specs(tmp)
     port = free_port()
     argv = [str(DAEMON), "--sleep-interval=1s", "--backend=mock",
             f"--mock-topology-file={MOCK_TOPOLOGY}",
@@ -1150,14 +1219,16 @@ def daemon_exec_run(env, tmp, slice_labels, perf_run, say):
             "--journal-capacity=4096",
             "--device-health=full", f"--health-exec={health_exec}",
             "--perf-characterize", f"--perf-exec={perf_exec}",
-            "--rated-specs-file=tpufd_torch/rated_specs.json"]
+            f"--rated-specs-file={rated_specs}"]
     stderr_path = tmp / "daemon.stderr"
     with daemon(argv, env, stderr_path) as proc:
         say(f"daemon pid {proc.pid} on 127.0.0.1:{port}: health exec "
-            f"`{health_exec}`, perf exec `{perf_exec}`")
+            f"`{health_exec}`, perf exec `{perf_exec}`, "
+            f"--rated-specs-file={rated_specs}")
         labels = wait_for_labels(proc, out_file, (
             PREFIX + "dma-copy-gbps", PERF_PREFIX + "matmul-tflops"),
             stderr_path, say)
+        events = scrape_journal(env, port, {})
         check_health_labels(labels, slice_labels, prom, "under the daemon",
                             say)
         for leaf in ("matmul-tflops", "hbm-gbps"):
@@ -1179,11 +1250,7 @@ def daemon_exec_run(env, tmp, slice_labels, perf_run, say):
         measured = journal_events(env, port, "perf-measure")
         require(measured, "no perf-measure event")
         fields = measured[-1]["fields"]
-        require(perf_label_value(float(fields["matmul_tflops"]))
-                == labels[PERF_PREFIX + "matmul-tflops"],
-                f"perf-measure matmul_tflops {fields['matmul_tflops']} "
-                f"is not the label's "
-                f"{labels[PERF_PREFIX + 'matmul-tflops']}")
+        check_perf_class(labels, fields, family, specs, say)
         say(f"journal --type perf-measure --raw: perf exec "
             f"{fields['duration_s']} s under the daemon against phase "
             f"5's {perf_seconds:.1f} s in-process; "
@@ -1208,6 +1275,8 @@ def daemon_exec_run(env, tmp, slice_labels, perf_run, say):
                 f"journal --file printed no dump event: {lines[:3]}")
         say(f"journal --file (SIGUSR1 dump): {lines[0]}; "
             f"{dumps[-1].strip()}")
+        check_transitions(scrape_journal(env, port, events),
+                          "under --device-health=full", say)
         stop(proc, say)
     return exec_seconds
 
@@ -1241,6 +1310,7 @@ def plugin_run(env, tmp, slice_labels, say):
             f"`{health_exec}`")
         labels = wait_for_labels(proc, out_file, (PREFIX + "dma-copy-gbps",),
                                  stderr_path, say)
+        events = scrape_journal(env, port, {})
         check_health_labels(labels, slice_labels, prom,
                             "behind the plugin", say)
         discovered = [e for e in journal_events(env, port,
@@ -1252,6 +1322,11 @@ def plugin_run(env, tmp, slice_labels, say):
         seconds = probe_seconds(env, port, "plugin." + PLUGIN.name)
         say(f"journal: plugin-discovered {PLUGIN.name}, no plugin-kill; "
             f"the plugin round (its exec) {seconds:.1f} s")
+        scrape_journal(env, port, events)
+        check_transitions(events, "behind the plugin", say)
+        violations = plugin.plugin_violations(events)
+        require(not violations, f"plugin violations: {violations}")
+        say("plugin.plugin_violations: none")
         stop(proc, say)
     return seconds
 

@@ -30,6 +30,7 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"health.py", "dma_copy.py", "chain_tail.py", "burnin.py",
             "mesh.py", "launch.py", "perfmodel.py", "__main__.py",
+            "healthsm.py", "plugin.py", "journal.py", "metrics.py",
             "chip_smoke.py"} <= names
 
 

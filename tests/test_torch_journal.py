@@ -2,7 +2,11 @@
 `tpufd_torch.journal` against `tpufd.journal` on documents generated from
 a numpy seed, every schema error, and `python -m tpufd_torch journal`
 against `python -m tpufd journal` on files, over HTTP and on a real
-daemon's SIGUSR1 dump."""
+daemon's SIGUSR1 dump. The event helpers (merge_events, events_of_type,
+label_changes, diffs_cover_changes and the per-type readers,
+labels_file_text) against the reference's on drawn events and on that
+daemon's journal and labels, and the port's metrics reader on its
+/metrics page."""
 
 import http.server
 import json
@@ -15,7 +19,7 @@ import threading
 import numpy as np
 import pytest
 
-from conftest import REPO, daemon_argv, wait_for
+from conftest import REPO, daemon_argv, http_get, wait_for
 from tpufd import journal as ref_journal
 from tpufd.__main__ import main as ref_main
 from tpufd.fakes import free_loopback_port
@@ -256,27 +260,62 @@ def test_flags_and_defaults_equal_the_reference(monkeypatch):
         "n": 0, "type": "", "raw": False}
 
 
-def test_real_daemon_dump_prints_the_reference_text(tfd_binary, tmp_path,
-                                                    capsys):
-    """One SIGUSR1 dump of the real daemon: both commands print the same
-    text, and the port also reads the live ring over HTTP."""
+
+
+def whole_dump(path):
+    """True once `path` holds a whole SIGUSR1 dump."""
+    try:
+        return "journal" in json.loads(path.read_text())
+    except (OSError, ValueError):
+        return False
+
+
+@pytest.fixture(scope="module")
+def daemon_run(tfd_binary, tmp_path_factory):
+    """One run of the real daemon: the port's live read of its ring over
+    HTTP (probe-ok, raw), two scrapes of its whole journal and of
+    /debug/labels a few passes apart, its /metrics page, then a SIGUSR1
+    dump."""
+    tmp = tmp_path_factory.mktemp("daemon")
     port = free_loopback_port()
-    out_file = tmp_path / "tfd"
-    dump = tmp_path / "dump.json"
+    out_file, dump = tmp / "tfd", tmp / "dump.json"
     proc = subprocess.Popen(
         daemon_argv(tfd_binary, port, out_file,
                     extra=(f"--debug-dump-file={dump}",)),
         env={**os.environ, "GCE_METADATA_HOST": "127.0.0.1:1"},
         stderr=subprocess.DEVNULL)
+
+    def get(path):
+        status, body = http_get(port, path)
+        assert status == 200, (path, status)
+        return body
+
+    run = {"scrapes": [], "labels": []}
     try:
         assert wait_for(lambda: out_file.exists()), "first pass never ran"
-        live = run_port_journal("--url", f"http://127.0.0.1:{port}",
-                                "--type", "probe-ok", "--raw")
+        run["live"] = run_port_journal("--url", f"http://127.0.0.1:{port}",
+                                       "--type", "probe-ok", "--raw")
+        for _ in range(2):
+            run["scrapes"].append(get("/debug/journal?n=0&type="))
+            run["labels"].append(get("/debug/labels"))
+            first = json.loads(run["scrapes"][0])["events"][-1]["seq"]
+            assert wait_for(lambda: json.loads(get(
+                "/debug/journal?n=0&type="))["events"][-1]["seq"]
+                > first + 10), "the ring stood still"
+        run["metrics"] = get("/metrics")
         proc.send_signal(signal.SIGUSR1)
-        assert wait_for(lambda: dump.exists()), "no dump"
+        assert wait_for(lambda: whole_dump(dump)), "no dump"
     finally:
         proc.send_signal(signal.SIGTERM)
         proc.wait(timeout=10)
+    run["dump"] = dump
+    return run
+
+
+def test_real_daemon_dump_prints_the_reference_text(daemon_run, capsys):
+    """One SIGUSR1 dump of the real daemon: both commands print the same
+    text, and the port also reads the live ring over HTTP."""
+    live, dump = daemon_run["live"], daemon_run["dump"]
     assert live.returncode == 0, live.stderr
     events = json.loads(live.stdout)["events"]
     assert events and {e["type"] for e in events} == {"probe-ok"}
@@ -287,3 +326,126 @@ def test_real_daemon_dump_prints_the_reference_text(tfd_binary, tmp_path,
     assert port_text.stdout.decode("utf-8") == out
     assert out.startswith("journal: ")
     assert " dump: SIGUSR1 debug dump requested" in out
+
+
+def helpers_of(module, events, previous, current, debug_labels):
+    """Every event helper of one journal module on one input."""
+    return {
+        "types": {t: module.events_of_type(events, t) for t in
+                  ("label-diff", "probe-ok", "degradation", "dump",
+                   "fault-injected", "breaker-transition", "absent")},
+        "changes": module.label_changes(previous, current),
+        "covered": module.diffs_cover_changes(
+            events, module.label_changes(previous, current)),
+        "degradation": module.degradation_transitions(events),
+        "faults": module.fault_injections(events),
+        "breaker": module.breaker_transitions(events),
+        "file": module.labels_file_text(debug_labels),
+    }
+
+
+def test_real_daemon_journal_helpers_equal_the_reference(daemon_run):
+    """Both scrapes and the dump merged by seq, then every event helper,
+    on the real daemon's journal and labels: the port's results are the
+    reference's, as a merged dict and as the dump's event list."""
+    docs = [*daemon_run["scrapes"],
+            json.loads(daemon_run["dump"].read_text())["journal"]]
+    merged, want_merged = {}, {}
+    for doc in docs:
+        journal.merge_events(merged, journal.parse_journal(doc))
+        ref_journal.merge_events(want_merged, ref_journal.parse_journal(doc))
+    assert merged == want_merged
+    assert len(merged) > max(len(journal.parse_journal(d)["events"])
+                             for d in docs[:2])
+    before, after = (json.loads(t) for t in daemon_run["labels"])
+    for events in (merged, journal.parse_journal(docs[-1])["events"]):
+        for previous, current, shown in [
+                ({}, after["labels"], after),
+                (before["labels"], after["labels"], daemon_run["labels"][1]),
+                (after["labels"], {}, before)]:
+            got = helpers_of(journal, events, previous, current, shown)
+            assert got == helpers_of(ref_journal, events, previous, current,
+                                     shown)
+    got = helpers_of(journal, merged, {}, after["labels"], after)
+    assert got["types"]["label-diff"] and got["types"]["probe-ok"]
+    assert got["covered"] == (True, [])
+    assert got["file"] == "".join(f"{k}={v}\n" for k, v in
+                                  sorted(after["labels"].items()))
+
+
+def test_real_daemon_metrics_page_reads_as_the_reference_reads_it(
+        daemon_run):
+    """The real daemon's /metrics page: the same samples from both
+    readers, and both validators take it."""
+    from tpufd import metrics as ref_metrics
+    from tpufd_torch import metrics
+
+    text = daemon_run["metrics"]
+    got = list(metrics.parse_samples_ex(text))
+    assert got == list(ref_metrics.parse_samples_ex(text)) and len(got) > 50
+    metrics.validate_exposition(text)
+    ref_metrics.validate_exposition(text)
+    for name in ("tfd_rewrites_total", "tfd_probe_attempts_total"):
+        for labels in (None, {"source": "mock"}):
+            assert (metrics.sample_value(text, name, labels)
+                    == ref_metrics.sample_value(text, name, labels))
+    assert metrics.sample_value(text, "tfd_rewrites_total") >= 1
+
+
+HELPER_TYPES = ("label-diff", "degradation", "fault-injected",
+                "breaker-transition", "probe-ok")
+HELPER_FIELDS = {
+    "label-diff": ("key", "labeler", "source", "tier"),
+    "degradation": ("from", "to"),
+    "fault-injected": ("point", "action"),
+    "breaker-transition": ("from", "to"),
+    "probe-ok": ("duration_s",),
+}
+
+
+def helper_events(seed):
+    """Events of every type a helper reads, from a numpy seed, each field
+    present, empty or absent; and two label dicts that differ by added,
+    removed and changed keys."""
+    rng = np.random.default_rng(seed)
+    events = []
+    for seq in rng.permutation(60) + 1:
+        kind = HELPER_TYPES[int(rng.integers(len(HELPER_TYPES)))]
+        fields = {}
+        for name in HELPER_FIELDS[kind]:
+            draw = rng.random()
+            if draw < 0.7:
+                fields[name] = f"{name}-{int(rng.integers(4))}"
+            elif draw < 0.85:
+                fields[name] = ""
+        events.append({"seq": int(seq), "ts": 1.7e9 + int(seq),
+                       "generation": 1, "change": 0, "type": kind,
+                       "fields": fields})
+    keys = [f"google.com/tpu.k{i}" for i in range(8)]
+    previous = {k: str(int(rng.integers(3))) for k in keys
+                if rng.random() < 0.7}
+    current = {k: str(int(rng.integers(3))) for k in keys
+               if rng.random() < 0.7}
+    return events, previous, current
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_drawn_journal_helpers_equal_the_reference(seed):
+    events, previous, current = helper_events(seed)
+    doc = {"capacity": 64, "dropped_total": 0, "generation": 1,
+           "change": 0, "events": events}
+    shown = {"labels": current, "provenance": {}}
+    halves = [dict(doc, events=events[:40]), dict(doc, events=events[20:])]
+    merged = {}
+    for half in halves:
+        journal.merge_events(merged, half)
+    want = {}
+    for half in halves:
+        ref_journal.merge_events(want, half)
+    assert merged == want and sorted(merged) == list(range(1, 61))
+    for given in (events, merged):
+        got = helpers_of(journal, given, previous, current, shown)
+        assert got == helpers_of(ref_journal, given, previous, current,
+                                 shown)
+    assert journal.labels_file_text(json.dumps(shown)) == got["file"]
+    assert journal.PROVENANCE_FIELDS == ref_journal.PROVENANCE_FIELDS

@@ -7,10 +7,15 @@ accelerator *does*, on an NVIDIA GPU:
                            DMA-copy kernel) and the health label set
   - tpufd_torch.dma_copy:  the hand-written CUDA copy kernel, its plain
                            PyTorch version and its launch counter
-  - tpufd_torch.perfmodel: bare measurement lines for --perf-exec
+  - tpufd_torch.perfmodel: bare measurement lines for --perf-exec, and
+                           the daemon's perf class model
   - tpufd_torch.burnin:    the burn-in MLP block (forward)
   - tpufd_torch.journal:   the daemon's flight recorder, parsed and
-                           printed (``python -m tpufd_torch journal``)
+                           printed (``python -m tpufd_torch journal``),
+                           and its event helpers
+  - tpufd_torch.metrics:   the Prometheus textfile, written and read
+  - tpufd_torch.healthsm:  the daemon's health state machine
+  - tpufd_torch.plugin:    the probe-plugin contract
 
 It imports torch, never jax, and nothing of ``tpufd``. Its entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
