@@ -84,8 +84,32 @@ phase catches an exception:
      must be unchanged after the execs. Each line carries its wall time
      since the phase began; the last compares the health exec's wall
      time in-process, under the daemon and behind the plugin;
-  9. a `{"kernels": [...]}` line;
- 10. as the last line, `{"ok": true, "device": {...}}`.
+  9. the fleet path: start the port's fake apiserver
+     (tpufd_torch.fakes.apiserver) in this process and run the daemon on
+     the card as phase 8 runs it, but publishing through its NodeFeature
+     CR sink (--use-node-feature-api) into the fake as CARD_NODE. The CR's
+     tpu.health.* labels are held against phase 4 and its tpu.perf.*
+     labels against perfmodel.expected_labels of the perf-measure event;
+     the change named by the CR's change-id annotation is read back from
+     /debug/trace through trace.parse_trace and records_for_change, must
+     reach publish-acked, and its stage_durations_ms are printed. Then
+     three peer CRs drawn from PEER_SEED (gold, silver, degraded) join it,
+     and the daemon runs in its fleet modes against the fake, each answer
+     held to the port's twin fed the same CRs: --mode=aggregator (the
+     tfd-cluster-inventory labels equal agg.InventoryStore's rollup, the
+     fleet matmul p10/p50 from the card's reading among them),
+     --mode=placement (a battery of POST /v1/placements equal to
+     placement.PlacementIndex.query; the card's node must be a candidate
+     for a job of its class and chips, and its rank is printed), and
+     --mode=remedy in its default dry run, while the degraded peer flaps
+     REMEDY_FLAPS times and the inventory asks for QUEUED_CHIPS (its
+     journal, read with `tpufd_torch journal`, must hold a cordon intent
+     for that peer, none for the card's node, the same intents as
+     remedy.RemedyEngine fed the same streams, and its engine state must
+     be the twin's render_json). Every daemon of the phase is killed by
+     its tag on any exit;
+ 10. a `{"kernels": [...]}` line;
+ 11. as the last line, `{"ok": true, "device": {...}}`.
 """
 
 import contextlib
@@ -97,24 +121,29 @@ import re
 import shlex
 import shutil
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.debug import CommDebugMode
 
-from tpufd_torch import _build, burnin, chain_tail, dma_copy, graft_entry
-from tpufd_torch import health, healthsm, journal, launch, mesh, metrics
-from tpufd_torch import perfmodel, plugin
+from tpufd_torch import _build, agg, burnin, chain_tail, dma_copy
+from tpufd_torch import graft_entry, health, healthsm, journal, launch, mesh
+from tpufd_torch import metrics, perfmodel, placement, plugin, remedy, sink
+from tpufd_torch import trace
 from tpufd_torch import __main__ as cli
+from tpufd_torch.fakes import free_loopback_port
+from tpufd_torch.fakes.apiserver import FakeApiServer
 
 PREFIX = "google.com/tpu.health."
 PERF_PREFIX = "google.com/tpu.perf."  # the daemon's perf labels
@@ -165,6 +194,29 @@ PLUGIN = REPO / "deployments" / "plugins" / "device-health"
 # health --extended took 40-44 s under the daemon: the plugin would be
 # killed and publish ok=false.
 PLUGIN_TIMEOUT_S = 180
+# Phase 9, the fleet path: the fake apiserver's namespace, the card's
+# node, its three seeded peers (each one's perf class and the ranges its
+# matmul TFLOP/s and HBM GB/s are drawn from), and the seed they are
+# drawn with.
+FLEET_NS = "tfd-fleet"
+CARD_NODE = "chip-smoke-card"
+PEERS = {"peer-gold": ("gold", (900.0, 980.0), (3000.0, 3300.0)),
+         "peer-silver": ("silver", (700.0, 880.0), (2500.0, 3000.0)),
+         "peer-degraded": ("degraded", (200.0, 450.0), (800.0, 1500.0))}
+PEER_SEED = 2026
+INVENTORY = "tfd-cluster-inventory"  # the aggregator's output CR
+# The remediation controller's windows, short as the reference's own
+# drill sets them (tests/test_remedy.py). A node that reads degraded
+# from its first observation draws no cordon: placement fences it
+# already. The controller cordons a crash-looping node, one whose
+# eligibility goes down REMEDY_FLAPS times inside REMEDY_WINDOW_S.
+REMEDY_WINDOW_S, REMEDY_FLAPS = 10, 3
+# The runner's queued-demand bridge label on the inventory CR
+# (src/tfd/remedy/remedy.h kQueueDemandLabel); more chips than the fleet
+# holds asks for a rebuild.
+QUEUE_DEMAND = "google.com/tpu.queue.demand-chips"
+QUEUED_CHIPS = 64
+FLEET_DEADLINE_S = 30  # for a fleet daemon to answer as its twin does
 
 
 def fail(message):
@@ -878,12 +930,6 @@ def build_daemon():
     return f"g++ ({len(sources)} core sources + main.cc)"
 
 
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def kill_tagged(tag):
     """SIGKILLs every process whose environment carries DAEMON_TAG=tag:
     the daemon and whatever it started, orphans included."""
@@ -1103,22 +1149,24 @@ def daemon(argv, env, stderr_path):
         kill_tagged(env[DAEMON_TAG])
 
 
-def wait_for_labels(proc, out_file, keys, stderr_path, say):
-    """The feature file's labels once every one of `keys` is in it; fails
-    if the daemon exits, publishes health ok=false, or takes longer than
-    DAEMON_DEADLINE_S. The basic health layer may publish ok before an
-    exec lands, so `keys` are labels the execs alone publish."""
+def wait_for_labels(proc, read, keys, stderr_path, say,
+                    where="the feature file"):
+    """The daemon's published labels, as read() returns them, once every
+    one of `keys` is in them; fails if the daemon exits, publishes health
+    ok=false, or takes longer than DAEMON_DEADLINE_S. The basic health
+    layer may publish ok before an exec lands, so `keys` are labels the
+    execs alone publish."""
     deadline = time.monotonic() + DAEMON_DEADLINE_S
     seen = set()
     while True:
-        labels = feature_labels(out_file)
+        labels = read()
         require(proc.poll() is None,
                 f"daemon exited {proc.returncode}:\n"
                 f"{stderr_tail(stderr_path)}")
         for key in keys:
             if key in labels and key not in seen:
                 seen.add(key)
-                say(f"{key}={labels[key]} in the feature file")
+                say(f"{key}={labels[key]} in {where}")
         require(labels.get(PREFIX + "ok") != "false",
                 f"health exec failed under the daemon: {labels}\n"
                 f"{stderr_tail(stderr_path)}")
@@ -1207,7 +1255,7 @@ def daemon_exec_run(env, tmp, slice_labels, perf_run, say):
                    f"--metrics-out {shlex.quote(str(prom))}")
     perf_exec = f"{python} -m tpufd_torch perfmodel"
     rated_specs, family, specs = stand_in_rated_specs(tmp)
-    port = free_port()
+    port = free_loopback_port()
     argv = [str(DAEMON), "--sleep-interval=1s", "--backend=mock",
             f"--mock-topology-file={MOCK_TOPOLOGY}",
             "--machine-type-file=/dev/null",
@@ -1225,7 +1273,7 @@ def daemon_exec_run(env, tmp, slice_labels, perf_run, say):
         say(f"daemon pid {proc.pid} on 127.0.0.1:{port}: health exec "
             f"`{health_exec}`, perf exec `{perf_exec}`, "
             f"--rated-specs-file={rated_specs}")
-        labels = wait_for_labels(proc, out_file, (
+        labels = wait_for_labels(proc, lambda: feature_labels(out_file), (
             PREFIX + "dma-copy-gbps", PERF_PREFIX + "matmul-tflops"),
             stderr_path, say)
         events = scrape_journal(env, port, {})
@@ -1293,7 +1341,7 @@ def plugin_run(env, tmp, slice_labels, say):
     out_file, prom = tmp / "tfd-plugin", tmp / "plugin.prom"
     health_exec = (f"{shlex.quote(sys.executable)} -m tpufd_torch health "
                    f"--extended --metrics-out {shlex.quote(str(prom))}")
-    port = free_port()
+    port = free_loopback_port()
     argv = [str(DAEMON), "--sleep-interval=1s", "--backend=mock",
             f"--mock-topology-file={MOCK_TOPOLOGY}",
             "--machine-type-file=/dev/null", f"--output-file={out_file}",
@@ -1308,8 +1356,9 @@ def plugin_run(env, tmp, slice_labels, say):
             f"off, the device-health plugin in {plugin_dir} under "
             f"--plugin-timeout={PLUGIN_TIMEOUT_S}s, TFD_PLUGIN_HEALTH_EXEC="
             f"`{health_exec}`")
-        labels = wait_for_labels(proc, out_file, (PREFIX + "dma-copy-gbps",),
-                                 stderr_path, say)
+        labels = wait_for_labels(proc, lambda: feature_labels(out_file),
+                                 (PREFIX + "dma-copy-gbps",), stderr_path,
+                                 say)
         events = scrape_journal(env, port, {})
         check_health_labels(labels, slice_labels, prom,
                             "behind the plugin", say)
@@ -1365,6 +1414,359 @@ def phase_daemon(slice_run, perf_run):
         f"start-up to its first probe {startup:.2f} s")
 
 
+def debug_get(port, path):
+    """(status, body) of GET path on a daemon's loopback port; (None, "")
+    while nothing listens there yet."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=5) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    except OSError:
+        return None, ""
+
+
+def fleet_env(base, server, sa_dir):
+    """`base` plus what a daemon needs to reach the fake apiserver: its
+    URL, the namespace, and an empty service-account directory (no
+    token, no CA)."""
+    return {**base, "TFD_APISERVER_URL": server.url,
+            "KUBERNETES_NAMESPACE": FLEET_NS,
+            "TFD_SERVICEACCOUNT_DIR": str(sa_dir)}
+
+
+def fleet_objects(server):
+    """{CR name: (spec.labels, metadata.annotations)} of every NodeFeature
+    in the fake's namespace, copied under its lock."""
+    with server._handler.lock:
+        return {name: (dict(obj["spec"]["labels"]),
+                       dict(obj["metadata"].get("annotations") or {}))
+                for (ns, name), obj in sorted(server.store.items())
+                if ns == FLEET_NS and "spec" in obj}
+
+
+def node_crs(server):
+    """{node: (labels, annotations)} of every node's CR in the fake."""
+    prefix = agg.CR_NAME_PREFIX
+    return {name[len(prefix):]: cr for name, cr in
+            fleet_objects(server).items() if name.startswith(prefix)}
+
+
+def seed_peers(server, say):
+    """Seeds three peer CRs drawn from PEER_SEED, one per class of
+    PEERS."""
+    rng = np.random.default_rng(PEER_SEED)
+    peers = {}
+    for node, (cls, matmul, hbm) in PEERS.items():
+        labels = {agg.TPU_COUNT: str(int(rng.choice([4, 8]))),
+                  agg.PERF_CLASS: cls,
+                  agg.PERF_MATMUL: agg.fixed3(float(rng.uniform(*matmul))),
+                  agg.PERF_HBM: agg.fixed3(float(rng.uniform(*hbm)))}
+        server.seed(FLEET_NS, agg.CR_NAME_PREFIX + node, labels,
+                    {sink.NODE_NAME_LABEL: node})
+        peers[node] = labels
+    say(f"seeded {len(peers)} peer CRs (numpy seed {PEER_SEED}): {peers}")
+
+
+def wait_equal(proc, read, want, what, stderr_path):
+    """read() once it equals `want`; fails if the daemon exits first or
+    FLEET_DEADLINE_S passes, showing the last reading beside `want`."""
+    deadline = time.monotonic() + FLEET_DEADLINE_S
+    while True:
+        got = read()
+        if got == want:
+            return got
+        require(proc.poll() is None, f"{what}: the daemon exited "
+                f"{proc.returncode}:\n{stderr_tail(stderr_path)}")
+        require(time.monotonic() < deadline,
+                f"{what}: {got} is not its twin's {want} after "
+                f"{FLEET_DEADLINE_S} s\n{stderr_tail(stderr_path)}")
+        time.sleep(0.2)
+
+
+def fleet_aggregator(binary, server, env, tmp, say):
+    """--mode=aggregator against the fake: the tfd-cluster-inventory CR's
+    labels must equal, string for string, agg.InventoryStore fed every
+    node CR (labels and stage-SLO annotation), with the fleet stages the
+    port's BurnEvaluator calls burning on those sketches. Returns the
+    inventory's labels."""
+    store = agg.InventoryStore()
+    for node, (labels, notes) in node_crs(server).items():
+        store.apply(node, labels, notes.get(sink.SLO_ANNOTATION, ""))
+    want = store.build_output_labels()
+    burn = agg.BurnEvaluator(agg.slo_budgets_ms_from_spec(
+        env.get("TFD_SLO_BUDGETS_MS", "")))
+    burn.note(0.0, store.stage)  # the sketches stand still: one tick
+    for stage in burn.burning_stages():
+        want[agg.SLO_BURN_PREFIX + stage + ".burn"] = "true"
+    port = free_loopback_port()
+    argv = [str(binary), "--mode=aggregator", "--agg-debounce=1s",
+            "--agg-lease-duration=4s",
+            f"--introspection-addr=127.0.0.1:{port}"]
+    stderr_path = tmp / "aggregator.stderr"
+    with daemon(argv, {**env, "POD_NAME": "agg-0"}, stderr_path) as proc:
+        got = wait_equal(
+            proc, lambda: fleet_objects(server).get(INVENTORY, ({},))[0],
+            want, f"the {INVENTORY} CR", stderr_path)
+        stop(proc, say)
+    say(f"--mode=aggregator: {INVENTORY} equals agg.InventoryStore of "
+        f"{len(store.nodes)} node CRs, {len(got)} labels: {got}")
+    return got
+
+
+def post_placement(port, doc):
+    """(status, body) of one POST /v1/placements."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/placements", method="POST",
+        data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=5) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+    except OSError:
+        return None, None
+
+
+def fleet_placement(binary, server, env, tmp, card, say):
+    """--mode=placement against the fake: a battery of POST
+    /v1/placements (a job of the card's class floor and chip count, a
+    gold job, a job larger than any node; some with the explanation),
+    each answer equal to placement.PlacementIndex.query fed the same node
+    CRs and inventory. Returns the card's node's rank for the first."""
+    crs = node_crs(server)
+    index = placement.PlacementIndex()
+    for node, (labels, notes) in crs.items():
+        index.apply_node(node, labels, notes.get(sink.CHANGE_ANNOTATION, ""))
+    inventory = fleet_objects(server).get(INVENTORY)
+    if inventory is not None:
+        index.apply_inventory(inventory[0],
+                              inventory[1].get(sink.CHANGE_ANNOTATION, ""))
+    chips = int(crs[card][0][agg.TPU_COUNT])
+    largest = max(int(labels.get(agg.TPU_COUNT, "0"))
+                  for labels, _ in crs.values())
+    battery = [{"class": "silver", "chips": chips, "limit": 64},
+               {"class": "silver", "chips": chips, "limit": 64,
+                "explain": True},
+               {"class": "gold", "chips": 1, "limit": 64, "explain": True},
+               {"class": "any", "chips": largest + 1, "explain": True}]
+    qport, port = free_loopback_port(), free_loopback_port()
+    argv = [str(binary), "--mode=placement",
+            f"--placement-listen-addr=127.0.0.1:{qport}",
+            f"--introspection-addr=127.0.0.1:{port}"]
+    stderr_path = tmp / "placement.stderr"
+    answers = []
+    with daemon(argv, {**env, "POD_NAME": "placement-0"},
+                stderr_path) as proc:
+        wait_equal(proc, lambda: debug_get(qport, "/readyz")[0], 200,
+                   "/readyz", stderr_path)
+        for doc in battery:
+            want = index.query(wanted=doc["class"], chips=doc["chips"],
+                               slice=doc.get("slice", False),
+                               limit=doc.get("limit", 1),
+                               explain=doc.get("explain", False))
+            answers.append(wait_equal(
+                proc, lambda: post_placement(qport, doc), (200, want),
+                f"POST /v1/placements {doc}", stderr_path)[1])
+            answer = answers[-1]
+            say(f"POST /v1/placements {json.dumps(doc)}: {answer['status']} "
+                f"{[c['node'] for c in answer['candidates']]}, equal to "
+                f"placement.PlacementIndex.query"
+                + (f"; {answer['explain']['counterfactual'] or 'placed'}"
+                   if "explain" in answer else ""))
+        stop(proc, say)
+    ranked = [c["node"] for c in answers[0]["candidates"]]
+    require(card in ranked, f"the card's node {card} is not among the "
+            f"candidates for a {battery[0]} job: {answers[0]}")
+    say(f"the card's node ranks {ranked.index(card) + 1} of {len(ranked)} "
+        f"for a silver job of {chips} chips: {ranked}")
+    return ranked.index(card) + 1
+
+
+def fleet_remedy(binary, server, env, tmp, card, flapper, say):
+    """--mode=remedy (dry run, its default) against the fake. Once the
+    controller has listed the fleet, `flapper`'s CR goes eligible and
+    back to its own labels REMEDY_FLAPS times, and the inventory CR asks
+    for QUEUED_CHIPS chips. Its journal, read with `tpufd_torch journal`,
+    must hold a cordon intent for `flapper`, none for `card`, and the
+    same intents as remedy.RemedyEngine fed the same streams; its engine
+    state (/debug/labels) must be the twin's render_json. Returns the
+    intents."""
+    engine = remedy.RemedyEngine(remedy.RemedyConfig(
+        window_s=float(REMEDY_WINDOW_S), heal_dwell_s=2.0, cooldown_s=1.0))
+    port = free_loopback_port()
+    argv = [str(binary), "--mode=remedy", "--agg-lease-duration=3s",
+            f"--remedy-window={REMEDY_WINDOW_S}s", "--remedy-heal-dwell=2s",
+            "--remedy-node-cooldown=1s",
+            f"--introspection-addr=127.0.0.1:{port}"]
+    stderr_path = tmp / "remedy.stderr"
+    kinds = ("remedy-cordon", "remedy-rollback", "remedy-drain",
+             "remedy-rebuild", "remedy-write-failed")
+
+    def journaled(kind):
+        status, body = debug_get(port, f"/debug/journal?type={kind}")
+        return json.loads(body)["events"] if status == 200 else []
+
+    with daemon(argv, {**env, "POD_NAME": "remedy-0"}, stderr_path) as proc:
+        wait_equal(proc, lambda: bool(journaled("remedy-synced")), True,
+                   "remedy-synced", stderr_path)
+        # What the controller listed: every node CR and the inventory.
+        now = 0.0
+        crs = node_crs(server)
+        for node, (labels, _) in crs.items():
+            engine.observe_node(node, labels, now)
+        inventory = fleet_objects(server).get(INVENTORY, ({},))[0]
+        engine.observe_inventory(inventory, now)
+        own = crs[flapper][0]
+        eligible = {**own, agg.PERF_CLASS: "silver"}
+        for _ in range(REMEDY_FLAPS):
+            for labels in (eligible, own):
+                now += 0.1
+                server.seed(FLEET_NS, agg.CR_NAME_PREFIX + flapper, labels)
+                engine.observe_node(flapper, labels, now)
+        demand = {**inventory, QUEUE_DEMAND: str(QUEUED_CHIPS)}
+        server.seed(FLEET_NS, INVENTORY, demand)
+        engine.observe_inventory(demand, now)
+        engine.observe_demand(QUEUED_CHIPS, now)
+        actions, blocked = engine.tick(now + 1.0)
+        for action in actions:
+            engine.note_action_result(action.node, action.kind, True,
+                                      now + 1.0)
+        want = sorted((a.kind, a.node, a.evidence) for a in actions)
+        wait_equal(proc, lambda: len([e for k in kinds
+                                      for e in journaled(k)]) >= len(want),
+                   True, f"{len(want)} remedy intents", stderr_path)
+        doc = json.loads(port_journal(env, "--url",
+                                      f"http://127.0.0.1:{port}", "--raw"))
+        intents = sorted((e["fields"]["action"], e["fields"]["node"],
+                          e["fields"]["evidence"])
+                         for e in doc["events"] if e["type"] in kinds)
+        require(intents == want, f"the controller's intents {intents} are "
+                f"not remedy.RemedyEngine's {want}")
+        require(("cordon", flapper, "crash-loop") in intents,
+                f"no cordon intent for {flapper}: {intents}")
+        require(not [i for i in intents if i[1] == card],
+                f"an intent names the card's node {card}: {intents}")
+        dry = {e["fields"]["dry_run"] for e in doc["events"]
+               if e["type"] in kinds}
+        require(dry == {"true"}, f"intents not journaled as dry runs: {dry}")
+        state = wait_equal(
+            proc, lambda: debug_get(port, "/debug/labels")[1].strip(),
+            '{"remedy":%s}' % engine.render_json(),
+            "the engine state at /debug/labels", stderr_path)
+        stop(proc, say)
+    patched = [r for r in server.requests
+               if r[0] == "PATCH" and r[1].startswith("/api/v1/nodes")]
+    require(not patched, f"the dry run patched nodes: {patched}")
+    say(f"--mode=remedy (dry run): intents {intents}, blocked {blocked}, "
+        f"equal to remedy.RemedyEngine; none for {card}; no node patched; "
+        f"/debug/labels {state}")
+    return intents
+
+
+def cr_node_run(server, env, tmp, slice_labels, say):
+    """The daemon on the card as phase 8 runs it, publishing through the
+    NodeFeature CR sink into the fake: its CR's tpu.health.* labels
+    against phase 4, its tpu.perf.* labels against
+    perfmodel.expected_labels of the perf-measure event, and the change
+    named by the CR's change-id annotation read back from /debug/trace
+    up to publish-acked. Returns the CR's labels."""
+    prom = tmp / "fleet-health.prom"
+    python = shlex.quote(sys.executable)
+    health_exec = (f"{python} -m tpufd_torch health --extended "
+                   f"--metrics-out {shlex.quote(str(prom))}")
+    perf_exec = f"{python} -m tpufd_torch perfmodel"
+    rated_specs, family, specs = stand_in_rated_specs(tmp)
+    port = free_loopback_port()
+    argv = [str(DAEMON), "--sleep-interval=1s", "--backend=mock",
+            f"--mock-topology-file={MOCK_TOPOLOGY}",
+            "--machine-type-file=/dev/null", "--use-node-feature-api",
+            "--output-file=", f"--introspection-addr=127.0.0.1:{port}",
+            "--journal-capacity=4096",
+            "--device-health=full", f"--health-exec={health_exec}",
+            "--perf-characterize", f"--perf-exec={perf_exec}",
+            f"--rated-specs-file={rated_specs}"]
+    name = agg.CR_NAME_PREFIX + CARD_NODE
+    stderr_path = tmp / "daemon-cr.stderr"
+    with daemon(argv, {**env, "NODE_NAME": CARD_NODE}, stderr_path) as proc:
+        say(f"daemon pid {proc.pid} on 127.0.0.1:{port}: "
+            f"--use-node-feature-api into {server.url} as {CARD_NODE}, "
+            f"the execs of phase 8")
+        labels = wait_for_labels(
+            proc, lambda: fleet_objects(server).get(name, ({},))[0],
+            (PREFIX + "dma-copy-gbps", PERF_PREFIX + "class"),
+            stderr_path, say, where=f"the CR {name}")
+        check_health_labels(labels, slice_labels, prom, "in the CR", say)
+        measured = journal_events(env, port, "perf-measure")
+        require(measured, "no perf-measure event")
+        check_perf_class(labels, measured[-1]["fields"], family, specs, say)
+        note = fleet_objects(server)[name][1].get(sink.CHANGE_ANNOTATION)
+        require(note and note.isdigit(),
+                f"the CR carries no {sink.CHANGE_ANNOTATION}: {note!r}")
+        change = int(note)
+        deadline = time.monotonic() + FLEET_DEADLINE_S
+        while True:
+            status, body = debug_get(port, f"/debug/trace?change={change}")
+            records = (trace.records_for_change(trace.parse_trace(body),
+                                                change)
+                       if status == 200 else [])
+            if records and trace.PUBLISH_ACKED in records[0]["stages"]:
+                break
+            require(time.monotonic() < deadline,
+                    f"change {change} did not reach {trace.PUBLISH_ACKED} "
+                    f"in /debug/trace: {body[-2000:]}")
+            time.sleep(0.2)
+        record = records[0]
+        durations = trace.stage_durations_ms(
+            {"minted_ts": record["minted_ts"],
+             "stages": list(record["stages"].items())})
+        say(f"/debug/trace?change={change} (the CR's "
+            f"{sink.CHANGE_ANNOTATION}): origin {record['origin']} "
+            f"source {record.get('source')}, generation "
+            f"{record['generation']}, reached {trace.PUBLISH_ACKED}; "
+            f"stage_durations_ms "
+            + ", ".join(f"{k} {v:.3f}" for k, v in durations.items()))
+        stop(proc, say)
+    return labels
+
+
+def phase_fleet(slice_labels):
+    """Phase 9: the card's labels through the fleet consumers (see the
+    module doc)."""
+    t0 = time.perf_counter()
+
+    def say(text):
+        print(f"[9 fleet +{time.perf_counter() - t0:.1f} s] {text}")
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        kernel_dir = tmp / "kernels"
+        build_ahead(kernel_dir, say)
+        sa_dir = tmp / "serviceaccount"
+        sa_dir.mkdir()
+        with FakeApiServer() as server:
+            env = fleet_env(deployment_env(tmp_name, kernel_dir), server,
+                            sa_dir)
+            say(f"fake apiserver {server.url}, namespace {FLEET_NS}")
+            labels = cr_node_run(server, env, tmp, slice_labels, say)
+            seed_peers(server, say)
+            inventory = fleet_aggregator(DAEMON, server, env, tmp, say)
+            say(f"inventory fleet matmul p10/p50 "
+                f"{inventory.get(agg.FLEET_MATMUL_P10)}/"
+                f"{inventory.get(agg.FLEET_MATMUL_P50)} TFLOP/s with the "
+                f"card's {labels[agg.PERF_MATMUL]}; capacity by class "
+                + ", ".join(f"{k[len(agg.CAPACITY_PREFIX):]} {v}"
+                            for k, v in inventory.items()
+                            if k.startswith(agg.CAPACITY_PREFIX)))
+            fleet_placement(DAEMON, server, env, tmp, CARD_NODE, say)
+            fleet_remedy(DAEMON, server, env, tmp, CARD_NODE,
+                         "peer-degraded", say)
+    say(f"phase 9 in {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     family = phase_card()
     phase_build()
@@ -1380,6 +1782,7 @@ def main():
     phase_burnin()
     phase_multicard(phase_train())
     phase_daemon((slice_labels, slice_seconds), perf_run)
+    phase_fleet(slice_labels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
