@@ -73,13 +73,21 @@ phase catches an exception:
      perfmodel.expected_labels of the newest perf-measure event's
      readings, classed by perfmodel.classify. The whole journal, merged
      by journal.merge_events over two scrapes, must hold no health
-     transition that the port's healthsm calls illegal; stop it with
-     SIGTERM. Then start it again with --device-health=off and the
+     transition that the port's healthsm calls illegal. Every
+     tfd_snapshot_age_seconds{source} of its /metrics, classified by the
+     port's sched.tier_of under the policy src/tfd/sched/sources.cc
+     registers for that source given the flags the daemon logged, must be
+     fresh, and its tier-change records must each equal sched.tier_of of
+     their age_s and walk each source from none to fresh and no further;
+     stop it with SIGTERM. Then start it again with --device-health=off and the
      in-tree device-health plugin in its --plugin-dir, execing the same
      health command through TFD_PLUGIN_HEALTH_EXEC under
      --plugin-timeout PLUGIN_TIMEOUT_S, and check the same health labels
      and textfile, a plugin-discovered and no plugin-kill event, no
-     illegal health transition and no plugin.plugin_violations. The
+     illegal health transition and no plugin.plugin_violations, the
+     plugin's interval and deadline as the port's plugin twin resolves
+     them equal to its plugin-discovered record, and the same snapshot
+     tiers with plugin.device-health's policy. The
      kernel directory
      must be unchanged after the execs. Each line carries its wall time
      since the phase began; the last compares the health exec's wall
@@ -139,8 +147,8 @@ from torch.distributed.tensor.debug import CommDebugMode
 
 from tpufd_torch import _build, agg, burnin, chain_tail, dma_copy
 from tpufd_torch import graft_entry, health, healthsm, journal, launch, mesh
-from tpufd_torch import metrics, perfmodel, placement, plugin, remedy, sink
-from tpufd_torch import trace
+from tpufd_torch import metrics, perfmodel, placement, plugin, remedy, sched
+from tpufd_torch import sink, trace
 from tpufd_torch import __main__ as cli
 from tpufd_torch.fakes import free_loopback_port
 from tpufd_torch.fakes.apiserver import FakeApiServer
@@ -189,6 +197,9 @@ PERF_TOL = 0.10
 # Set in the daemon's environment, so every process it starts carries
 # it and none outlives the phase.
 DAEMON_TAG = "TPUFD_CHIP_SMOKE_DAEMON"
+# The daemon prints a tier-change record's age_s with std::to_string, 6
+# decimals (src/tfd/sched/snapshot.cc:300).
+TIER_ROUNDING_S = 1e-6
 PLUGIN = REPO / "deployments" / "plugins" / "device-health"
 # The plugin's kill deadline. --plugin-timeout defaults to 30 s, and
 # health --extended took 40-44 s under the daemon: the plugin would be
@@ -1244,6 +1255,151 @@ def stop(proc, say):
     say(f"daemon stopped by SIGTERM, exit {rc}")
 
 
+def daemon_flags(stderr_path):
+    """The flags the daemon resolved from its argv over the defaults of
+    src/tfd/config/config.h, as it logs them at each config load
+    (`running with config:`, config::ToJson); the newest load's."""
+    found = re.findall(r"running with config: (\{.*\})$",
+                       stderr_path.read_text(errors="replace"), flags=re.M)
+    require(found, f"the daemon logged no config:\n{stderr_tail(stderr_path)}")
+    return json.loads(found[-1])["flags"]
+
+
+def flag_seconds(flags, key):
+    """A duration of config::ToJson (`"240s"`) in seconds."""
+    return int(flags[key].removesuffix("s"))
+
+
+def plugin_source(path, env, flags):
+    """(source, interval_s, deadline_s) of the plugin at `path` as the
+    daemon resolves them (src/tfd/plugin/plugin.cc DiscoverPlugins), by
+    the port's plugin twin: the plugin's handshake, run as the daemon runs
+    it in `env`, and its `.conf` stanza if there is one, over
+    --plugin-interval (else --sleep-interval) and --plugin-timeout."""
+    proc = subprocess.run([str(path)], env={
+        **env, "TFD_PLUGIN_OP": "handshake",
+        "TFD_PLUGIN_CONTRACT": plugin.CONTRACT_V1},
+        capture_output=True, text=True, timeout=10)
+    require(proc.returncode == 0, f"{path.name}'s handshake exited "
+            f"{proc.returncode}: {proc.stderr[-3000:]}")
+    handshake, error = plugin.parse_handshake(proc.stdout)
+    require(error is None, f"{path.name}'s handshake: {error}")
+    conf_path = path.with_name(path.name + ".conf")
+    conf, error = plugin.parse_plugin_conf(
+        conf_path.read_text() if conf_path.exists() else "")
+    require(error is None, f"{conf_path}: {error}")
+    interval = plugin.effective_interval_s(
+        handshake, conf, flag_seconds(flags, "pluginInterval")
+        or flag_seconds(flags, "sleepInterval"))
+    deadline = plugin.effective_deadline_s(
+        handshake, conf, flag_seconds(flags, "pluginTimeout"))
+    return plugin.SOURCE_PREFIX + handshake["name"], interval, deadline
+
+
+def source_policies(flags, plugins=()):
+    """{source: sched.TierPolicy} as src/tfd/sched/sources.cc registers
+    its sources under `flags` (daemon_flags): the device source of
+    --backend (:693-698), `health` under --device-health=full (:724-728),
+    `perf` under --perf-characterize (:785-789), `plugin.<name>` for each
+    (source, interval_s, deadline_s) of `plugins` (:879-889), and
+    `lifecycle` under --lifecycle-watch (:946-951)."""
+    sleep = flag_seconds(flags, "sleepInterval")
+    override = flag_seconds(flags, "snapshotUsableFor")
+    full = flags["deviceHealth"] == "full"
+    deadline = {"pjrt": flag_seconds(flags, "pjrtInitTimeout") + (
+        flag_seconds(flags, "healthExecTimeout") if full else 0),
+                "metadata": 10}.get(flags["backend"], 0)
+    policies = {flags["backend"]: sched.device_policy(sleep, deadline,
+                                                      override)}
+    if full:
+        fresh = (flag_seconds(flags, "healthExecInterval")
+                 + flag_seconds(flags, "healthExecTimeout") + 4 * sleep)
+        policies["health"] = sched.TierPolicy(fresh, fresh + 6 * sleep)
+    if flags["perfCharacterize"]:
+        recheck = flag_seconds(flags, "perfRecheckInterval")
+        fresh = recheck + flag_seconds(flags, "perfExecTimeout") + 4 * sleep
+        policies["perf"] = sched.TierPolicy(fresh, fresh + recheck)
+    for source, interval, plugin_deadline in plugins:
+        fresh = interval + plugin_deadline + 4 * sleep
+        policies[source] = sched.TierPolicy(
+            fresh, override if override > 0 else fresh + 6 * sleep)
+    if flags["lifecycleWatch"] and not flags["oneshot"]:
+        fresh = 4 * sleep + 10
+        policies["lifecycle"] = sched.TierPolicy(
+            fresh, override if override > 0 else fresh + 6 * sleep)
+    return policies
+
+
+def tier_within_rounding(tier, age_s, policy):
+    """Whether `tier` is sched.tier_of(age_s, policy), or the tier across
+    a boundary that lies within TIER_ROUNDING_S of age_s, the daemon's
+    rounding of the age it prints (which keeps the age's sign)."""
+    ages = (age_s - TIER_ROUNDING_S, age_s, age_s + TIER_ROUNDING_S)
+    return tier in {sched.tier_of(a, policy) for a in ages
+                    if (a >= 0) == (age_s >= 0)}
+
+
+def tier_walks(events, policies):
+    """{source: [none, tier, ...]}: the tiers each source's tier-change
+    records walk, in order. Each record's `from` must be the previous
+    record's `to` of its source (none first), and its `to` the port's
+    sched.tier_of of its age_s under the source's policy, up to the
+    daemon's rounding; a source without a policy fails."""
+    walks = {}
+    for event in events:
+        source, fields = event.get("source"), event["fields"]
+        require(source in policies,
+                f"tier-change of source {source}, which has no policy "
+                f"here: {event}")
+        walk = walks.setdefault(source, [sched.NONE])
+        require(fields["from"] == walk[-1],
+                f"tier-change from {fields['from']}, after {walk}: {event}")
+        require(tier_within_rounding(fields["to"], float(fields["age_s"]),
+                                     policies[source]),
+                f"tier-change to {fields['to']} at age {fields['age_s']} s, "
+                f"where sched.tier_of gives "
+                f"{sched.tier_of(float(fields['age_s']), policies[source])}"
+                f": {event}")
+        walk.append(fields["to"])
+    return walks
+
+
+def check_snapshot_tiers(env, port, policies, how, say):
+    """The daemon's staleness read through the port's sched: every
+    tfd_snapshot_age_seconds{source} sample of its /metrics, classified by
+    sched.tier_of under the policy it registered for that source, must be
+    fresh, as scripts/soak.py requires at the end of a healthy soak; and
+    its tier-change records (`tpufd_torch journal --type tier-change`) must
+    walk each such source from none to fresh and no further."""
+    t0 = time.perf_counter()
+    status, text = debug_get(port, "/metrics")
+    require(status == 200, f"GET /metrics answered {status} {how}")
+    ages = {labels.get("source"): value
+            for name, labels, value in metrics.parse_samples(text)
+            if name == "tfd_snapshot_age_seconds"}
+    require(ages, f"no tfd_snapshot_age_seconds sample {how}")
+    for source, age in sorted(ages.items()):
+        require(source in policies,
+                f"source {source} reports an age {how} and has no policy")
+        policy = policies[source]
+        tier = sched.tier_of(age, policy)
+        say(f"snapshot {source}: age {age:.6g} s, {tier} under fresh_for "
+            f"{policy.fresh_for_s} s, usable_for {policy.usable_for_s} s "
+            f"{how}")
+        require(tier == sched.FRESH, f"snapshot {source} is {tier} {how}")
+    walks = tier_walks(journal_events(env, port, "tier-change"), policies)
+    for source, walk in sorted(walks.items()):
+        say(f"tier-change {source}: {len(walk) - 1} record(s), "
+            f"{' -> '.join(walk)}, each equal to sched.tier_of of its age_s")
+    require(set(ages) <= set(walks),
+            f"tier-change records for {sorted(walks)}, ages for "
+            f"{sorted(ages)} {how}")
+    left = {s: w for s, w in walks.items() if w != [sched.NONE, sched.FRESH]}
+    require(not left, f"a source left fresh {how}: {left}")
+    say(f"snapshot tiers read and checked in "
+        f"{time.perf_counter() - t0:.2f} s {how}")
+
+
 def daemon_exec_run(env, tmp, slice_labels, perf_run, say):
     """The daemon with --device-health=full execing `tpufd_torch health
     --extended` and --perf-characterize execing `tpufd_torch perfmodel`;
@@ -1325,6 +1481,9 @@ def daemon_exec_run(env, tmp, slice_labels, perf_run, say):
             f"{dumps[-1].strip()}")
         check_transitions(scrape_journal(env, port, events),
                           "under --device-health=full", say)
+        check_snapshot_tiers(env, port,
+                             source_policies(daemon_flags(stderr_path)),
+                             "under --device-health=full", say)
         stop(proc, say)
     return exec_seconds
 
@@ -1350,8 +1509,8 @@ def plugin_run(env, tmp, slice_labels, say):
             f"--plugin-dir={plugin_dir}",
             f"--plugin-timeout={PLUGIN_TIMEOUT_S}s"]
     stderr_path = tmp / "daemon-plugin.stderr"
-    with daemon(argv, {**env, "TFD_PLUGIN_HEALTH_EXEC": health_exec},
-                stderr_path) as proc:
+    plugin_env = {**env, "TFD_PLUGIN_HEALTH_EXEC": health_exec}
+    with daemon(argv, plugin_env, stderr_path) as proc:
         say(f"daemon pid {proc.pid} on 127.0.0.1:{port}: --device-health="
             f"off, the device-health plugin in {plugin_dir} under "
             f"--plugin-timeout={PLUGIN_TIMEOUT_S}s, TFD_PLUGIN_HEALTH_EXEC="
@@ -1368,6 +1527,14 @@ def plugin_run(env, tmp, slice_labels, say):
         kills = journal_events(env, port, "plugin-kill")
         require(discovered and not kills,
                 f"plugin-discovered {discovered}, plugin-kill {kills}")
+        flags = daemon_flags(stderr_path)
+        source, interval, deadline = plugin_source(
+            plugin_dir / PLUGIN.name, plugin_env, flags)
+        fields = discovered[-1]["fields"]
+        require((fields["interval_s"], fields["deadline_s"])
+                == (str(interval), str(deadline)),
+                f"plugin-discovered {fields}, where the plugin twin resolves "
+                f"interval {interval} s, deadline {deadline} s")
         seconds = probe_seconds(env, port, "plugin." + PLUGIN.name)
         say(f"journal: plugin-discovered {PLUGIN.name}, no plugin-kill; "
             f"the plugin round (its exec) {seconds:.1f} s")
@@ -1376,6 +1543,10 @@ def plugin_run(env, tmp, slice_labels, say):
         violations = plugin.plugin_violations(events)
         require(not violations, f"plugin violations: {violations}")
         say("plugin.plugin_violations: none")
+        say(f"{source}: interval {interval} s, deadline {deadline} s by the "
+            f"plugin twin, as the daemon journaled them")
+        check_snapshot_tiers(env, port, source_policies(
+            flags, [(source, interval, deadline)]), "behind the plugin", say)
         stop(proc, say)
     return seconds
 

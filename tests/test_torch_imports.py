@@ -34,7 +34,8 @@ def test_port_files_found():
             "mesh.py", "launch.py", "perfmodel.py", "__main__.py",
             "healthsm.py", "plugin.py", "journal.py", "metrics.py",
             "sink.py", "agg.py", "trace.py", "placement.py", "remedy.py",
-            "slicecoord.py", "cluster.py", "chip_smoke.py"} <= names
+            "slicecoord.py", "cluster.py", "sched.py",
+            "chip_smoke.py"} <= names
     fakes = {str(p.relative_to(REPO)) for p in PORT_FILES
              if p.parent.name == "fakes"}
     assert {f"tpufd_torch/fakes/{name}.py" for name in (

@@ -14,6 +14,8 @@ accelerator *does*, on an NVIDIA GPU:
                            printed (``python -m tpufd_torch journal``),
                            and its event helpers
   - tpufd_torch.metrics:   the Prometheus textfile, written and read
+  - tpufd_torch.sched:     probe retries with the daemon's backoff, and
+                           its snapshot tiers and store
   - tpufd_torch.healthsm:  the daemon's health state machine
   - tpufd_torch.plugin:    the probe-plugin contract
 
