@@ -23,6 +23,11 @@ traced n, a probe here enqueues n iterations from a Python loop. At the
 card sizes every iteration holds the device for far longer than its
 launches take to enqueue.
 
+Every probe reading is a ``probe`` span on ``tpufd_torch.spans``'
+recorder, and the timer records its calibration steps and runs under
+it (``_time_iters``); ``tpufd_timer_iterations_total`` counts the loop
+iterations it ran, those the label rests on apart.
+
 Probes run on a CUDA card unless the caller passes device="cpu" (the
 tests do). With no card and no explicit CPU request they raise.
 """
@@ -43,6 +48,7 @@ from tpufd_torch import dma_copy as dma_copy_lib
 from tpufd_torch import launch
 from tpufd_torch import metrics
 from tpufd_torch import sched as sched_lib
+from tpufd_torch import spans
 from tpufd_torch.perfmodel import load_rated_specs
 
 _RATED = load_rated_specs()
@@ -156,37 +162,90 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
     Raises RuntimeError when the difference is not measurable (jitter or
     caching swamped it); callers must treat that as probe failure, not as
     infinite throughput.
-    """
-    warmed = False
 
-    def run(n):
+    Records a ``timer`` span (``iterations_run``: every loop iteration fn
+    was asked for, the warm-up's included; ``iterations_label``: those
+    of the step the result rests on, 0 when it raises), a
+    ``timer.step`` span per calibration step (``n``, the three
+    ``differences`` in the order run, ``accepted``) and a ``timer.run``
+    span per run of fn, from its call to the fetch's return (``n``,
+    ``salt``, ``role``: warm, n or 2n). The enclosing ``probe`` span
+    names the probe in ``tpufd_timer_iterations_total``.
+    """
+    recorder = spans.default_recorder()
+    request = recorder.current_request()
+    probe = (request.attrs.get("probe", "")
+             if request is not None and request.name == "probe" else "")
+    warmed = False
+    iterations_run = iterations_label = 0
+
+    def once(n, role):
+        nonlocal iterations_run
+        salt = _salt()
+        iterations_run += n
+        with recorder.span("timer.run", n=n, salt=salt, role=role):
+            start = time.perf_counter()
+            _fetch_scalar(fn(n, salt))
+            return time.perf_counter() - start
+
+    def run(n, role):
         nonlocal warmed
         if not warmed:  # first-use costs (kernel build, allocator) excluded
-            _fetch_scalar(fn(n, _salt()))
+            once(n, "warm")
             warmed = True
-        start = time.perf_counter()
-        _fetch_scalar(fn(n, _salt()))
-        return time.perf_counter() - start
+        return once(n, role)
 
-    # Calibrate on the DIFFERENTIAL, not single-run wall time, and judge
-    # every step by the median of 3 pairs: a single pair can be faked by
-    # jitter. Grow the loop until median(t(2n) - t(n)) is measurable.
-    n = iters
-    while True:
-        diffs = sorted(run(2 * n) - run(n) for _ in range(3))
-        median = _agree_max(diffs[1], agree_on)  # median rides out jitter
-        if median >= settle_s or n >= iters * 1024:
-            break
-        n *= 4
-    seconds_for_n = median
-    if seconds_for_n < settle_s / 2:
-        # Hitting the calibration cap with the diff still below the floor
-        # means device time never grew with the loop length — a tiny
-        # positive diff here would report an absurd throughput as healthy.
-        raise RuntimeError(
-            f"unmeasurable device time (median diff {seconds_for_n:.2g}s "
-            f"at {n} iterations); not reporting a throughput")
-    return seconds_for_n * iters / n  # normalize back to `iters`
+    with recorder.span("timer") as timer:
+        try:
+            # Calibrate on the DIFFERENTIAL, not single-run wall time, and
+            # judge every step by the median of 3 pairs: a single pair can
+            # be faked by jitter. Grow the loop until median(t(2n) - t(n))
+            # is measurable.
+            n = iters
+            while True:
+                with recorder.span("timer.step", n=n) as step:
+                    diffs = [run(2 * n, "2n") - run(n, "n")
+                             for _ in range(3)]
+                    step.attrs["differences"] = diffs
+                    diffs = sorted(diffs)
+                    # median rides out jitter
+                    median = _agree_max(diffs[1], agree_on)
+                    ended = median >= settle_s or n >= iters * 1024
+                    step.attrs["accepted"] = (ended
+                                              and not median < settle_s / 2)
+                if ended:
+                    break
+                n *= 4
+            seconds_for_n = median
+            if seconds_for_n < settle_s / 2:
+                # Hitting the calibration cap with the diff still below the
+                # floor means device time never grew with the loop length
+                # — a tiny positive diff here would report an absurd
+                # throughput as healthy.
+                raise RuntimeError(
+                    f"unmeasurable device time (median diff "
+                    f"{seconds_for_n:.2g}s at {n} iterations); not "
+                    f"reporting a throughput")
+            iterations_label = n
+            return seconds_for_n * iters / n  # normalize back to `iters`
+        finally:
+            timer.attrs["iterations_run"] = iterations_run
+            timer.attrs["iterations_label"] = iterations_label
+            _count_iterations(probe, iterations_run, iterations_label)
+
+
+def _count_iterations(probe, run, label):
+    """Adds one timer call's body iterations to the registry: `label`,
+    those of the step the label rests on, and the rest of `run`, the
+    warm-up's and the calibration ladder's."""
+    reg = metrics.default_registry()
+    help_text = ("Loop iterations of a probe body that the differential "
+                 "timer ran, per probe: role=label those of the step the "
+                 "label rests on, role=calibration the warm-up's and the "
+                 "calibration ladder's.")
+    for role, count in (("label", label), ("calibration", run - label)):
+        reg.counter("tpufd_timer_iterations_total", help_text,
+                    labels={"probe": probe, "role": role}).inc(count)
 
 
 def _settle_s(device):
@@ -216,10 +275,11 @@ def _matmul_probe_fn(device, size):
 
 def matmul_tflops(device=None, size=4096, iters=8):
     """Measured bf16 matmul TFLOP/s on one card."""
-    device = resolve_device(device)
-    seconds = _time_iters(_matmul_probe_fn(device, size), iters,
-                          settle_s=_settle_s(device))
-    return 2.0 * size * size * size * iters / seconds / 1e12
+    with spans.span("probe", probe="matmul-tflops"):
+        device = resolve_device(device)
+        seconds = _time_iters(_matmul_probe_fn(device, size), iters,
+                              settle_s=_settle_s(device))
+        return 2.0 * size * size * size * iters / seconds / 1e12
 
 
 def _stream(x, n):
@@ -240,11 +300,12 @@ def _stream_probe_fn(device, mib):
 
 def hbm_gbps(device=None, mib=512, iters=16):
     """Measured HBM streaming bandwidth (GB/s, read+write) on one card."""
-    device = resolve_device(device)
-    n = mib * 1024 * 1024 // 2  # bf16 elements
-    seconds = _time_iters(_stream_probe_fn(device, mib), iters,
-                          settle_s=_settle_s(device))
-    return 2.0 * n * 2 * iters / seconds / 1e9  # read + write per iter
+    with spans.span("probe", probe="hbm-gbps"):
+        device = resolve_device(device)
+        n = mib * 1024 * 1024 // 2  # bf16 elements
+        seconds = _time_iters(_stream_probe_fn(device, mib), iters,
+                              settle_s=_settle_s(device))
+        return 2.0 * n * 2 * iters / seconds / 1e9  # read + write per iter
 
 
 def _dma_copy_shape(mib, chunks):
@@ -266,11 +327,12 @@ def dma_copy_gbps(device=None, mib=256, iters=16, chunks=2):
     card where the two disagree sharply has a sick path, not sick HBM.
     On the CPU the plain version runs: the plumbing is covered, the
     number means nothing."""
-    device = resolve_device(device)
-    rows, cols = _dma_copy_shape(mib, chunks)
-    seconds = _time_iters(_dma_copy_probe_fn(device, mib, chunks), iters,
-                          settle_s=_settle_s(device))
-    return 2.0 * rows * cols * 2 * iters / seconds / 1e9
+    with spans.span("probe", probe="dma-copy-gbps"):
+        device = resolve_device(device)
+        rows, cols = _dma_copy_shape(mib, chunks)
+        seconds = _time_iters(_dma_copy_probe_fn(device, mib, chunks),
+                              iters, settle_s=_settle_s(device))
+        return 2.0 * rows * cols * 2 * iters / seconds / 1e9
 
 
 # ---- multi-device probes: run on every rank of a process group -------------
@@ -294,17 +356,18 @@ def allreduce_gbps(mesh, mib=64, iters=8):
     The byte count is the reference's, 2 (k - 1) / k of all n elements per
     step, though each rank reduces its one row of n / k: the label reads
     k times the bus bandwidth of that reduction. At k = 1 it is 0."""
-    axis = mesh.mesh_dim_names[0]
-    k = mesh.size()
-    n = mib * 1024 * 1024 // 2
-    device = resolve_device(mesh.device_type)
-    x = torch.ones(n // k, dtype=torch.bfloat16, device=device)
-    group = mesh.get_group(axis)
-    seconds = _time_iters(
-        lambda it, salt: _allreduce_loop(x * salt, it, group), iters,
-        settle_s=_settle_s(device), agree_on=device)
-    bytes_moved = 2.0 * n * 2 * (k - 1) / k * iters
-    return bytes_moved / seconds / 1e9
+    with spans.span("probe", probe="allreduce-gbps"):
+        axis = mesh.mesh_dim_names[0]
+        k = mesh.size()
+        n = mib * 1024 * 1024 // 2
+        device = resolve_device(mesh.device_type)
+        x = torch.ones(n // k, dtype=torch.bfloat16, device=device)
+        group = mesh.get_group(axis)
+        seconds = _time_iters(
+            lambda it, salt: _allreduce_loop(x * salt, it, group), iters,
+            settle_s=_settle_s(device), agree_on=device)
+        bytes_moved = 2.0 * n * 2 * (k - 1) / k * iters
+        return bytes_moved / seconds / 1e9
 
 
 def _coords_grid(devices):
@@ -382,18 +445,19 @@ def ici_axis_gbps(mesh, axis, mib=64, iters=8):
     rank: each rank's shard of a (rows, 1024) bf16 array of about mib MiB
     goes to its +1 neighbour on the axis, `iters` times, so the traffic
     rides that axis's links alone (the reference's ppermute ring)."""
-    n_axis = mesh.size(mesh.mesh_dim_names.index(axis))
-    cols = 1024
-    rows = max(mib * 1024 * 1024 // 2 // cols // n_axis, 1) * n_axis
-    device = resolve_device(mesh.device_type)
-    # ones, not zeros: the salt folds in multiplicatively.
-    x = torch.ones((rows // n_axis, cols), dtype=torch.bfloat16,
-                   device=device)
-    seconds = _time_iters(
-        lambda k, salt: _shift_loop(x * salt, k, mesh, axis), iters,
-        settle_s=_settle_s(device), agree_on=device)
-    bytes_sent_per_device = rows * cols * 2 / n_axis
-    return bytes_sent_per_device * iters / seconds / 1e9
+    with spans.span("probe", probe=f"ici-{axis}-gbps"):
+        n_axis = mesh.size(mesh.mesh_dim_names.index(axis))
+        cols = 1024
+        rows = max(mib * 1024 * 1024 // 2 // cols // n_axis, 1) * n_axis
+        device = resolve_device(mesh.device_type)
+        # ones, not zeros: the salt folds in multiplicatively.
+        x = torch.ones((rows // n_axis, cols), dtype=torch.bfloat16,
+                       device=device)
+        seconds = _time_iters(
+            lambda k, salt: _shift_loop(x * salt, k, mesh, axis), iters,
+            settle_s=_settle_s(device), agree_on=device)
+        bytes_sent_per_device = rows * cols * 2 / n_axis
+        return bytes_sent_per_device * iters / seconds / 1e9
 
 
 def _allreduce_rank(device_type, mib):
