@@ -2,12 +2,13 @@
 scheduler, held against the JAX package on the CPU."""
 
 import time
+from fractions import Fraction
 
 import numpy as np
 import pytest
 import torch
 
-from tpufd_torch import health, metrics, sched
+from tpufd_torch import health, metrics, sched, spans
 
 PREFIX = "google.com/tpu.health."
 MULTI_DEVICE_LEAVES = ("allreduce-gbps",)
@@ -68,12 +69,15 @@ def test_stream_works_in_place():
 
 class FakeClock:
     """perf_counter stand-in: a probe call advances it by a fixed
-    overhead plus `per_iter` seconds per loop iteration."""
+    overhead plus `per_iter` seconds per loop iteration. It counts in
+    exact fractions, so the lengths a timer ran before a step round
+    nothing: the port's timer skips lengths that tpufd's runs, and both
+    still read the same differences at the same n."""
 
     def __init__(self, per_iter, overhead=0.5):
-        self.now = 0.0
-        self.per_iter = per_iter
-        self.overhead = overhead
+        self.now = Fraction(0)
+        self.per_iter = Fraction(per_iter)
+        self.overhead = Fraction(overhead)
 
     def __call__(self):
         return self.now
@@ -97,6 +101,47 @@ def test_time_iters_matches_jax_timer(cpu_jax, monkeypatch, per_iter):
         results.append(module._time_iters(clock.probe, 4, settle_s=0.02))
         monkeypatch.undo()
     assert results[0] == results[1] == pytest.approx(4 * per_iter)
+
+
+# Per-iteration costs from 1e-6 to 2 s on a log grid: none lies within 6%
+# of a length whose median would equal settle_s, settle_s / 2 or 3/4 of
+# settle_s (0.02 s, 4 iters), so no case rests on a tie.
+PER_ITER_GRID = [float(p) for p in np.geomspace(1e-6, 2.0, 15)]
+
+
+@pytest.mark.parametrize("overhead", [0.5, 3e-3])
+@pytest.mark.parametrize("per_iter", PER_ITER_GRID)
+def test_time_iters_accepts_the_jax_timers_n(cpu_jax, monkeypatch,
+                                             per_iter, overhead):
+    """With a cost linear in n the port's timer, which skips the lengths
+    its first step shows to fall short, accepts the n of tpufd's timer,
+    which tries them all (half its longest run), and returns the same
+    seconds; where tpufd's raises, the port's raises the same error."""
+    from tpufd import health as ref
+
+    outcomes, longest = [], []
+    recorder = spans.Recorder()
+    for module in (ref, health):
+        monkeypatch.setattr(spans, "_DEFAULT", recorder)
+        clock = FakeClock(per_iter, overhead=overhead)
+        ran = []
+
+        def probe(n, salt, clock=clock, ran=ran):
+            ran.append(int(n))
+            return clock.probe(n, salt)
+
+        monkeypatch.setattr(time, "perf_counter", clock)
+        try:
+            outcomes.append(module._time_iters(probe, 4, settle_s=0.02))
+        except RuntimeError as err:
+            outcomes.append(str(err))
+        monkeypatch.undo()
+        longest.append(max(ran))
+    steps = [s for s in recorder.spans if s.name == "timer.step"]
+    assert steps[-1].attrs["n"] == longest[0] // 2
+    assert outcomes[1] == outcomes[0]
+    if not isinstance(outcomes[0], str):
+        assert outcomes[0] == pytest.approx(4 * per_iter)
 
 
 def test_time_iters_raises_when_device_time_never_grows(monkeypatch):

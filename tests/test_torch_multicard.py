@@ -25,7 +25,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.debug import CommDebugMode
 
-from tpufd_torch import burnin, health, launch, mesh as mesh_lib
+from tpufd_torch import burnin, health, launch, mesh as mesh_lib, spans
 
 PREFIX = "google.com/tpu.health."
 SECONDS = 0.25  # what the stubbed timer reports in both packages
@@ -111,6 +111,49 @@ def ring_outputs(q, k, v):
     return out
 
 
+class RankClock:
+    """perf_counter stand-in on a rank: a probe call advances it by
+    `per_iter` seconds a loop iteration."""
+
+    def __init__(self, per_iter):
+        self.now, self.per_iter = 0.0, per_iter
+
+    def __call__(self):
+        return self.now
+
+
+def unequal_ranks_ladder():
+    """Every rank times a probe body whose iterations cost (rank + 1) *
+    1e-4 s on its own fake clock, agreeing on each step over the ranks.
+    Every body call all-reduces its n (MAX), as a collective probe body
+    would, and notes whether the ranks' n matched. Returns every rank's
+    step lengths, seconds and that note."""
+    clock = RankClock((dist.get_rank() + 1) * 1e-4)
+    matched = []
+
+    def body(n, salt):
+        seen = torch.tensor([float(n)])
+        dist.all_reduce(seen, op=dist.ReduceOp.MAX)
+        matched.append(float(seen) == n)
+        clock.now += n * clock.per_iter
+        return torch.tensor([salt])
+
+    recorder = spans.Recorder()
+    real_clock, real_recorder = time.perf_counter, spans._DEFAULT
+    time.perf_counter, spans._DEFAULT = clock, recorder
+    try:
+        seconds = health._time_iters(body, 4, settle_s=0.02,
+                                     agree_on=torch.device("cpu"))
+    finally:
+        time.perf_counter, spans._DEFAULT = real_clock, real_recorder
+    mine = {"ladder": [s.attrs["n"] for s in recorder.spans
+                       if s.name == "timer.step"],
+            "seconds": seconds, "matched": all(matched)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
 def probe_checks():
     """The all-reduce step and loop, the ring shift and both probes."""
     me, n = dist.get_rank(), dist.get_world_size()
@@ -138,6 +181,7 @@ def probe_checks():
     out["ici_real"] = {axis: health.ici_axis_gbps(grid, axis, mib=1,
                                                   iters=2)
                        for axis in grid.mesh_dim_names}
+    out["unequal_ranks"] = unequal_ranks_ladder()
     # The byte formulas, timer stubbed.
     real_timer = health._time_iters
     health._time_iters = fixed_timer
@@ -403,6 +447,18 @@ def test_real_probes_over_gloo_are_finite_and_positive(four_ranks):
     assert probes["allreduce_real"] > 0
     for axis in ("x", "y"):
         assert probes["ici_real"][axis] > 0
+
+
+def test_ranks_of_unequal_speed_skip_to_one_length(four_ranks):
+    """The timer's skip is judged on the agreed median: ranks whose body
+    costs 1e-4 to 4e-4 s an iteration all run lengths 4 then 64, the
+    slowest rank's jump (the fastest alone would go on at 256), with
+    their collective bodies in step, and all return the slowest rank's
+    seconds."""
+    every = four_ranks["probes"]["unequal_ranks"]
+    assert [r["ladder"] for r in every] == [[4, 64]] * 4
+    assert all(r["matched"] for r in every)
+    assert [r["seconds"] for r in every] == pytest.approx([4 * 4e-4] * 4)
 
 
 # ---- the sharded train step -------------------------------------------------

@@ -24,13 +24,15 @@ def recorder(monkeypatch):
 
 class FakeClock:
     """perf_counter stand-in: a probe call advances it by a fixed
-    overhead plus `per_iter` seconds per loop iteration; it keeps the
-    salts it was given."""
+    overhead plus `per_iter` seconds per loop iteration, or, where
+    `first` is (n_max, cost) and the call runs at most n_max iterations,
+    `cost` per iteration; it keeps the salts it was given."""
 
-    def __init__(self, per_iter, overhead=0.5):
+    def __init__(self, per_iter, overhead=0.5, first=None):
         self.now = 0.0
         self.per_iter = per_iter
         self.overhead = overhead
+        self.first = first
         self.salts = []
 
     def __call__(self):
@@ -38,7 +40,10 @@ class FakeClock:
 
     def probe(self, n, salt):
         self.salts.append(salt)
-        self.now += self.overhead + int(n) * self.per_iter
+        per_iter = self.per_iter
+        if self.first is not None and int(n) <= self.first[0]:
+            per_iter = self.first[1]
+        self.now += self.overhead + int(n) * per_iter
         return np.array([float(salt)])
 
 
@@ -143,28 +148,54 @@ def test_the_clock_offset_is_realtime_minus_perf_counter():
 # ---- the timer's spans -----------------------------------------------------
 
 # (per_iter, iters, settle_s, the n of each calibration step, the last the
-# accepted one). Each step runs 3 pairs of 2n and n; the warm-up, 2 * iters.
+# accepted one, the lengths skipped after the first step, the first step's
+# cost per iteration where it differs, a peer's median over this rank's
+# where ranks agree). Each step runs 3 pairs of 2n and n; the warm-up,
+# 2 * iters. The timer skips the lengths the first step predicts below
+# 3/4 of settle_s: at 1e-3 s, 8 iters, rung 32 (0.032 s); rung 128 (0.128 s)
+# runs, falls short of 0.15 s and climbs.
 LADDERS = [
-    (1e-3, 4, 0.02, [4, 16, 64]),
-    (1e-4, 4, 0.02, [4, 16, 64, 256]),
-    (2.0, 4, 0.02, [4]),
-    (1e-3, 8, 0.15, [8, 32, 128, 512]),
+    (1e-3, 4, 0.02, [4, 16, 64], 0, None, None),
+    (1e-4, 4, 0.02, [4, 256], 2, None, None),
+    (2.0, 4, 0.02, [4], 0, None, None),
+    (1e-3, 8, 0.15, [8, 128, 512], 1, None, None),
+    # a first step twice as dear: the jump lands a rung short and climbs
+    # once, to the n a full ladder accepts ([8, 32, 128, 512, 2048])
+    (1.5e-4, 8, 0.15, [8, 512, 2048], 2, 3e-4, None),
+    # a first step twice as cheap: the jump lands a rung above a full
+    # ladder's 2048, and the seconds are still iters * per_iter
+    (1e-4, 8, 0.15, [8, 8192], 4, 5e-5, None),
+    # a first step with no cost to measure: no skip, the full ladder
+    (1e-4, 8, 0.15, [8, 32, 128, 512, 2048], 0, 0.0, None),
+    # a peer 4 times slower: the agreed median sets the jump ([8, 2048]
+    # alone)
+    (1e-4, 8, 0.15, [8, 512], 2, None, 4.0),
 ]
 
 
-@pytest.mark.parametrize("per_iter, iters, settle_s, ladder", LADDERS)
+@pytest.mark.parametrize(
+    "per_iter, iters, settle_s, ladder, skipped, first, peer", LADDERS,
+    ids=[f"{c[0]}-{c[1]}-{c[2]}-ladder{i}" for i, c in enumerate(LADDERS)])
 def test_time_iters_records_its_ladder(recorder, monkeypatch, per_iter,
-                                       iters, settle_s, ladder):
-    clock = FakeClock(per_iter)
+                                       iters, settle_s, ladder, skipped,
+                                       first, peer):
+    clock = FakeClock(per_iter,
+                      first=None if first is None else (2 * iters, first))
     monkeypatch.setattr(time, "perf_counter", clock)
+    if peer is not None:
+        monkeypatch.setattr(health, "_agree_max",
+                            lambda value, device: peer * value)
     with recorder.span("probe", probe="matmul-tflops"):
         seconds = health._time_iters(clock.probe, iters, settle_s=settle_s)
-    assert seconds == pytest.approx(iters * per_iter)
+    assert seconds == pytest.approx(iters * per_iter * (peer or 1.0))
     (timer,) = named(recorder, "timer")
     steps, runs = named(recorder, "timer.step"), named(recorder, "timer.run")
     assert [s.attrs["n"] for s in steps] == ladder
     assert [s.attrs["accepted"] for s in steps] == [False] * (
         len(ladder) - 1) + [True]
+    assert timer.attrs["rungs_skipped"] == skipped
+    jumped = [i for i, s in enumerate(steps) if s.attrs.get("jumped")]
+    assert jumped == ([1] if skipped else [])
     want_runs = [2 * iters] + [m for n in ladder for m in (2 * n, n) * 3]
     assert [r.attrs["n"] for r in runs] == want_runs
     assert [r.attrs["role"] for r in runs] == ["warm"] + ["2n", "n"] * (
@@ -175,11 +206,21 @@ def test_time_iters_records_its_ladder(recorder, monkeypatch, per_iter,
     assert all(r.parent == s.id for s in steps for r in runs
                if s.start_ns <= r.start_ns <= s.end_ns)
     assert {s.parent for s in steps} == {timer.id}
+    text = metrics.default_registry().render()
+    outcome = None if not skipped else (
+        "accepted" if len(ladder) == 2 else "climbed")
+    for name in health._JUMP_OUTCOMES:
+        assert metrics.sample_value(
+            text, "tpufd_timer_jumps_total",
+            {"probe": "matmul-tflops", "outcome": name}) == (
+                name == outcome)
 
 
 def test_step_differences_are_the_timers(recorder, monkeypatch):
     """Each step holds its three t(2n) - t(n) in the order run; the label
-    rests on the accepted step's median."""
+    rests on the accepted step's median. The first step's 1e-3 s an
+    iteration sends the timer on to n = 256, whose runs take the times
+    below."""
     clock = FakeClock(1e-3)
     times = iter([0.30, 0.10, 0.31, 0.10, 0.28, 0.10])
     real = clock.probe
@@ -194,9 +235,9 @@ def test_step_differences_are_the_timers(recorder, monkeypatch):
     monkeypatch.setattr(time, "perf_counter", clock)
     seconds = health._time_iters(probe, 4, settle_s=0.15)
     step = named(recorder, "timer.step")[-1]
-    assert step.attrs["n"] == 64 and step.attrs["accepted"]
+    assert step.attrs["n"] == 256 and step.attrs["accepted"]
     assert step.attrs["differences"] == pytest.approx([0.20, 0.21, 0.18])
-    assert seconds == pytest.approx(0.20 * 4 / 64)
+    assert seconds == pytest.approx(0.20 * 4 / 256)
 
 
 def test_an_unmeasurable_timer_closes_its_spans_with_the_error(
@@ -222,6 +263,28 @@ def test_an_unmeasurable_timer_closes_its_spans_with_the_error(
         timer.attrs["iterations_run"]
 
 
+def test_a_jump_to_the_cap_that_stays_unmeasurable_raises(recorder,
+                                                          monkeypatch):
+    """A first step with a sliver of cost, then none: the timer jumps to
+    the cap, raises there as a full ladder would, and counts the jump's
+    outcome as unmeasurable."""
+    clock = FakeClock(per_iter=0.0, first=(8, 1e-7))
+    monkeypatch.setattr(time, "perf_counter", clock)
+    with pytest.raises(RuntimeError, match="at 4096 iterations"):
+        with recorder.span("probe", probe="hbm-gbps"):
+            health._time_iters(clock.probe, 4, settle_s=0.02)
+    (timer,) = named(recorder, "timer")
+    steps = named(recorder, "timer.step")
+    assert [s.attrs["n"] for s in steps] == [4, 4096]
+    assert [s.attrs.get("jumped", False) for s in steps] == [False, True]
+    assert not any(s.attrs["accepted"] for s in steps)
+    assert timer.attrs["rungs_skipped"] == 4
+    text = metrics.default_registry().render()
+    assert [metrics.sample_value(text, "tpufd_timer_jumps_total",
+                                 {"probe": "hbm-gbps", "outcome": name})
+            for name in health._JUMP_OUTCOMES] == [0, 0, 1]
+
+
 @pytest.mark.parametrize("probe, leaf, kwargs", [
     (health.matmul_tflops, "matmul-tflops", {"size": 32}),
     (health.hbm_gbps, "hbm-gbps", {"mib": 1}),
@@ -244,7 +307,9 @@ def test_the_health_textfile_counts_the_spans_iterations(recorder,
                                                          tmp_path, capsys):
     """`health --device cpu --metrics-out` writes a valid textfile whose
     tpufd_timer_iterations_total adds up, per probe and role, to the
-    timer spans' counts."""
+    timer spans' counts, and whose tpufd_timer_jumps_total adds up, per
+    probe, to the timer spans that skipped lengths, those whose jumped
+    step was accepted apart."""
     out = tmp_path / "health.prom"
     assert cli.main(["health", "--device", "cpu", "--metrics-out",
                      str(out)]) == 0
@@ -263,6 +328,15 @@ def test_the_health_textfile_counts_the_spans_iterations(recorder,
             assert metrics.sample_value(
                 text, "tpufd_timer_iterations_total",
                 {"probe": leaf, "role": role}) == want
+        jumps = {name: metrics.sample_value(
+            text, "tpufd_timer_jumps_total",
+            {"probe": leaf, "outcome": name})
+            for name in health._JUMP_OUTCOMES}
+        assert sum(jumps.values()) == sum(
+            t.attrs["rungs_skipped"] > 0 for t in timers)
+        assert jumps["accepted"] == sum(
+            s.attrs["accepted"] for s in named(recorder, "timer.step")
+            if s.attrs.get("jumped") and roots[s.request] == leaf)
 
 
 # ---- picking the window's readings ---------------------------------------

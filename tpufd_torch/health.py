@@ -16,8 +16,10 @@ process group, one rank per card (``tpufd_torch.launch``): the all-reduce
 per-axis ring (``ici_axis_gbps``, point-to-point sends).
 
 Timing is differential, as in the reference: t(2n) - t(n) over salted
-inputs, median of 3 pairs, loop length grown until the difference is
+inputs, median of 3 pairs, loop length grown by 4 until the difference is
 measurable, so launch latency, allocation and host round-trips cancel.
+Unlike the reference, the timer skips the lengths that its first step
+shows to fall short; the length the label rests on is the reference's.
 PyTorch runs eagerly, so where the reference runs one executable with a
 traced n, a probe here enqueues n iterations from a Python loop. At the
 card sizes every iteration holds the device for far longer than its
@@ -26,7 +28,8 @@ launches take to enqueue.
 Every probe reading is a ``probe`` span on ``tpufd_torch.spans``'
 recorder, and the timer records its calibration steps and runs under
 it (``_time_iters``); ``tpufd_timer_iterations_total`` counts the loop
-iterations it ran, those the label rests on apart.
+iterations it ran, those the label rests on apart, and
+``tpufd_timer_jumps_total`` the calls that skipped lengths.
 
 Probes run on a CUDA card unless the caller passes device="cpu" (the
 tests do). With no card and no explicit CPU request they raise.
@@ -146,6 +149,14 @@ def _agree_max(value, device):
     return float(agreed)
 
 
+# After its first step the timer goes on at the first length whose median
+# the first step's cost per iteration predicts at this share of settle_s or
+# more. A length below it is skipped only where its median could reach
+# settle_s just if it exceeded the prediction by more than a third: on an
+# H100 a matmul chain step's run time differs by 13% at most across lengths.
+_JUMP_SHARE = 0.75
+
+
 def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
     """Seconds attributable to `iters` loop iterations alone.
 
@@ -153,11 +164,18 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
     input. Times runs at n and 2n and returns the difference, so fixed
     per-call overhead cancels instead of polluting the throughput number.
 
+    The lengths n are iters * 4**k, tried in turn up to iters * 1024 until
+    a step's median difference reaches `settle_s`, as in the reference.
+    Unlike it, after the first step (n = iters, median m > 0) the timer
+    skips every length whose predicted median, m / iters per iteration,
+    falls below _JUMP_SHARE of settle_s: with a cost linear in n it
+    accepts the reference's n and returns the reference's seconds.
+
     When `fn` runs collectives, every rank of the process group must run
     the same sequence of n: `agree_on` (the device of the ranks'
     collectives) makes every calibration step judge the largest median
     difference of all ranks, agreed outside the timed runs, and all ranks
-    return that time.
+    return that time; the skip is judged from that agreed median too.
 
     Raises RuntimeError when the difference is not measurable (jitter or
     caching swamped it); callers must treat that as probe failure, not as
@@ -165,19 +183,22 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
 
     Records a ``timer`` span (``iterations_run``: every loop iteration fn
     was asked for, the warm-up's included; ``iterations_label``: those
-    of the step the result rests on, 0 when it raises), a
-    ``timer.step`` span per calibration step (``n``, the three
-    ``differences`` in the order run, ``accepted``) and a ``timer.run``
-    span per run of fn, from its call to the fetch's return (``n``,
-    ``salt``, ``role``: warm, n or 2n). The enclosing ``probe`` span
-    names the probe in ``tpufd_timer_iterations_total``.
+    of the step the result rests on, 0 when it raises;
+    ``rungs_skipped``: the lengths skipped), a ``timer.step`` span per
+    calibration step (``n``, the three ``differences`` in the order run,
+    ``accepted``, and ``jumped`` on the step that follows a skip) and a
+    ``timer.run`` span per run of fn, from its call to the fetch's return
+    (``n``, ``salt``, ``role``: warm, n or 2n). The enclosing ``probe``
+    span names the probe in ``tpufd_timer_iterations_total`` and
+    ``tpufd_timer_jumps_total``.
     """
     recorder = spans.default_recorder()
     request = recorder.current_request()
     probe = (request.attrs.get("probe", "")
              if request is not None and request.name == "probe" else "")
     warmed = False
-    iterations_run = iterations_label = 0
+    iterations_run = iterations_label = rungs_skipped = 0
+    jumped_to = jump_outcome = None
 
     def once(n, role):
         nonlocal iterations_run
@@ -204,6 +225,8 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
             n = iters
             while True:
                 with recorder.span("timer.step", n=n) as step:
+                    if n == jumped_to:
+                        step.attrs["jumped"] = True
                     diffs = [run(2 * n, "2n") - run(n, "n")
                              for _ in range(3)]
                     step.attrs["differences"] = diffs
@@ -211,11 +234,22 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
                     # median rides out jitter
                     median = _agree_max(diffs[1], agree_on)
                     ended = median >= settle_s or n >= iters * 1024
-                    step.attrs["accepted"] = (ended
-                                              and not median < settle_s / 2)
+                    accepted = ended and not median < settle_s / 2
+                    step.attrs["accepted"] = accepted
+                if n == jumped_to:
+                    jump_outcome = ("accepted" if accepted else
+                                    "unmeasurable" if ended else "climbed")
                 if ended:
                     break
+                per_iter = median / iters if n == iters else 0.0
                 n *= 4
+                # The first step's cost per iteration predicts each
+                # length's median: skip those that fall short.
+                while (per_iter > 0 and n < iters * 1024
+                       and per_iter * n < _JUMP_SHARE * settle_s):
+                    n *= 4
+                    rungs_skipped += 1
+                    jumped_to = n
             seconds_for_n = median
             if seconds_for_n < settle_s / 2:
                 # Hitting the calibration cap with the diff still below the
@@ -231,7 +265,9 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
         finally:
             timer.attrs["iterations_run"] = iterations_run
             timer.attrs["iterations_label"] = iterations_label
+            timer.attrs["rungs_skipped"] = rungs_skipped
             _count_iterations(probe, iterations_run, iterations_label)
+            _count_jump(probe, jump_outcome)
 
 
 def _count_iterations(probe, run, label):
@@ -246,6 +282,26 @@ def _count_iterations(probe, run, label):
     for role, count in (("label", label), ("calibration", run - label)):
         reg.counter("tpufd_timer_iterations_total", help_text,
                     labels={"probe": probe, "role": role}).inc(count)
+
+
+_JUMP_OUTCOMES = ("accepted", "climbed", "unmeasurable")
+
+
+def _count_jump(probe, outcome):
+    """Counts one timer call that skipped lengths under the `outcome` of
+    the step it jumped to (None: it skipped none, or that step never
+    ended); every outcome's series is kept, at 0 until it happens."""
+    reg = metrics.default_registry()
+    help_text = ("Differential timer calls that skipped calibration "
+                 "lengths after their first step, per probe, by what the "
+                 "step jumped to did: outcome=accepted the label rests on "
+                 "it, outcome=climbed the timer went on to longer runs, "
+                 "outcome=unmeasurable it was the last length and the "
+                 "timer raised.")
+    for name in _JUMP_OUTCOMES:
+        reg.counter("tpufd_timer_jumps_total", help_text,
+                    labels={"probe": probe, "outcome": name}).inc(
+                        int(outcome == name))
 
 
 def _settle_s(device):
