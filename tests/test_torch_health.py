@@ -65,6 +65,57 @@ def test_stream_works_in_place():
     assert health._stream(x, 3) is x and float(x[0]) == -1.0
 
 
+def stream_input(seed):
+    """Every bf16 bit pattern (NaNs, ±inf, ±0 and subnormals among them),
+    then seeded random bits."""
+    every = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16)
+    drawn = torch.randint(-2**15, 2**15, (4099,), dtype=torch.int16,
+                          generator=torch.Generator().manual_seed(seed))
+    return torch.cat([every, drawn]).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [0, 1, 16, 17])
+def test_stream_matches_the_plain_reference_bit_for_bit(n):
+    """Bit for bit outside NaN inputs, which stay NaN: neg_ negates a bf16
+    through float, which may rewrite a NaN's payload and sign."""
+    from portbench.reference import stream as reference
+
+    x = stream_input(seed=n)
+    tiny = torch.finfo(torch.bfloat16).tiny
+    assert x.isinf().sum() >= 2 and (x.view(torch.int16) == 0).any()
+    assert (x.view(torch.int16) == -2**15).any()
+    assert ((x != 0) & (x.abs() < tiny)).any()
+    nan = x.isnan()
+    assert nan.any()
+    got, want = health._stream(x.clone(), n), reference.stream(x, n)
+    assert torch.equal(got.view(torch.int16)[~nan],
+                       want.view(torch.int16)[~nan])
+    assert got[nan].isnan().all()
+    assert reference.mismatches(got, want, x) == 0
+
+
+def test_a_half_flips_body_passes_at_16_and_fails_at_17():
+    """A flip's output shows only the parity of n: the check drives odd
+    n too."""
+    from portbench.reference import stream as reference
+
+    x = stream_input(seed=3)
+    numbers = {n: reference.mismatches(health._stream(x.clone(), n // 2),
+                                       reference.stream(x, n), x)
+               for n in (16, 17)}
+    assert numbers == {16: 0, 17: float((~x.isnan()).sum())}
+
+
+@pytest.mark.parametrize("n", [16, 17])
+def test_the_float8_control_fails_the_stream_check(n):
+    from portbench.reference import stream as reference
+
+    x = stream_input(seed=n)
+    out = reference.stream(x, n, torch.float8_e4m3fn)
+    assert reference.mismatches(out, reference.stream(x, n), x) > 0.5 * (
+        x.numel())
+
+
 # ---- the differential timer ------------------------------------------------
 
 class FakeClock:
