@@ -12,10 +12,11 @@ phase catches an exception:
      the matmul probe (median of 3), read first in the process;
   3. every kernel against its plain PyTorch version on the card. The DMA
      copy: bit-exact at the probe's shape and at small, ragged and
-     misaligned ones, and at its edges (chunks 3, one row per chunk,
-     chunks smaller than a tile and a tile plus 16 bytes, more chunks
-     than the grid holds); its C entry point with the output inside a
-     sentinel-filled buffer, which must stay untouched around it; its
+     misaligned ones (which alone count an unaligned launch), and at its
+     edges (chunks 3, one row per chunk, chunks of half a sweep, a sweep
+     plus 16 bytes and three sweeps plus 16 bytes, more chunks than the
+     card holds blocks at once); its C entry point with the output inside
+     a sentinel-filled buffer, which must stay untouched around it; its
      launch plan; the wrapper's refusal of a bad row count; kernel,
      plain-version and library-call times beside the bound, the kernel's
      time at 2n over its time at n, and the kernel no faster than `copy_`
@@ -27,7 +28,8 @@ phase catches an exception:
      its plain version and the three eager passes it replaced, which it
      must beat. Then the matmul probe read again;
   4. the slice: health_labels(extended=True) on cuda:0, with every kernel
-     launch count set to 0 just before and read just after, and the
+     launch count set to 0 just before and read just after (no DMA launch
+     unaligned: the probe's launches all take the vector path), and the
      `dma-copy-gbps` label no higher than `copy_`'s rate beyond
      COPY_NOISE; then each probe's device, wall and enqueue time per
      iteration, and one chain step split into its product, the three-pass
@@ -305,15 +307,17 @@ def random_bf16(shape, gen, offset=0):
 def dma_edge_cases(plan):
     """(shape, chunks) at the DMA kernel's edges, for its launch plan at
     the probe's shape: chunks 3; one row per chunk, with more chunks than
-    the grid holds at once; chunks of half a tile, of one tile plus 16
-    bytes and of three tiles plus 16 bytes (16-byte rows), in 2 chunks and
-    in more chunks than the grid holds at once."""
-    tile_rows = plan["tile_bytes"] // 16  # rows of 8 bf16 in one tile
-    # Twice the resident grid: one block per chunk, in two waves.
-    many = 4 * plan["blocks_per_chunk"]
+    the card holds blocks at once; chunks of half a sweep, of one sweep
+    plus 16 bytes and of three sweeps plus 16 bytes (16-byte rows), in 2
+    chunks and in more chunks than the card holds blocks at once."""
+    sweep_rows = plan["sweep_bytes"] // 16  # rows of 8 bf16 in one sweep
+    # Twice the blocks the card holds at once: the chunks' first sweeps
+    # alone take two waves.
+    many = 2 * plan["resident_per_sm"] * torch.cuda.get_device_properties(
+        DEVICE).multi_processor_count
     cases = [((12, 7), 3), ((768, 1024), 3), ((12, 7), 12),
              ((512, 1024), 512)]
-    for rows_per in (tile_rows // 2, tile_rows + 1, 3 * tile_rows + 1):
+    for rows_per in (sweep_rows // 2, sweep_rows + 1, 3 * sweep_rows + 1):
         cases += [((2 * rows_per, 8), 2), ((many * rows_per, 8), many)]
     return cases
 
@@ -355,18 +359,18 @@ def phase_kernel(family):
                 cases += 1
     plan = dma_copy.launch_plan(*PROBE_SHAPE, 2, DEVICE)
     print(f"[3 kernel] dma_copy launch at {PROBE_SHAPE} in 2 chunks: "
-          f"{plan['threads']} threads per block, {plan['blocks_per_chunk']} "
-          f"blocks per chunk, {plan['resident_per_sm']} resident blocks per "
-          f"SM, tile {plan['tile_bytes']} B, {plan['stages']} stages, "
-          f"{plan['smem_bytes']} B dynamic shared memory per block")
+          f"{plan['threads']} threads per block, {plan['sweeps_per_chunk']} "
+          f"sweeps (blocks) per chunk and repeat, {plan['resident_per_sm']} "
+          f"resident blocks per SM, {plan['vecs_per_thread']} 16-byte loads "
+          f"in flight per thread, {plan['sweep_bytes']} B a sweep")
     edges = dma_edge_cases(plan)
     for shape, chunks in edges:
         x = random_bf16(shape, gen)
         for n in (1, 3):
             max_err = max(max_err, check_dma_copy(x, n, chunks))
             cases += 1
-    # A tile's worth of canary elements (two tiles of bytes) on each side.
-    pad = plan["tile_bytes"]
+    # A sweep's worth of canary elements (two sweeps of bytes) each side.
+    pad = plan["sweep_bytes"]
     canaries = 0
     for shape, chunks in [(PROBE_SHAPE, 2), *edges]:
         # Aligned; both 6 bytes off a 16-byte boundary (the head path);
@@ -381,10 +385,16 @@ def phase_kernel(family):
     require(torch.equal(got.view(torch.int16), bits),
             "dma_copy kernel does not copy every bit pattern")
     # A contiguous input whose address is 6 bytes off the output's
-    # 16-byte alignment takes the element-by-element path.
+    # 16-byte alignment takes the element-by-element path, and is the one
+    # launch counted unaligned.
     base = torch.randn(64 * 1024 + 3, generator=gen, device=DEVICE).to(
         torch.bfloat16)
+    unaligned = dma_copy.unaligned_launches
     max_err = max(max_err, check_dma_copy(base[3:].view(64, 1024), 2, 2))
+    require(dma_copy.unaligned_launches == unaligned + 1,
+            f"a misaligned input counted "
+            f"{dma_copy.unaligned_launches - unaligned} unaligned launches, "
+            f"not 1")
     try:
         dma_copy.dma_copy(torch.zeros((5, 1024), dtype=torch.bfloat16,
                                       device=DEVICE), 1, 2)
@@ -622,12 +632,16 @@ def probe_iteration_times(name, fn, n):
 
 def phase_slice(family, copy_gbps):
     dma_copy.launches = 0
+    dma_copy.unaligned_launches = 0
     chain_tail.launches = 0
     t0 = time.perf_counter()
     labels = health.health_labels(extended=True, device=DEVICE)
     seconds = time.perf_counter() - t0
     launches = {"dma_copy": dma_copy.launches,
                 "chain_tail": chain_tail.launches}
+    require(dma_copy.unaligned_launches == 0,
+            f"{dma_copy.unaligned_launches} of the DMA probe's "
+            f"{dma_copy.launches} launches took the element-by-element path")
     require(labels.get(PREFIX + "ok") == "true", f"ok is not true: {labels}")
     for leaf in ("matmul-tflops", "hbm-gbps", "dma-copy-gbps"):
         value = labels.get(PREFIX + leaf)
@@ -651,7 +665,8 @@ def phase_slice(family, copy_gbps):
         for leaf in ("matmul-tflops", "hbm-gbps", "dma-copy-gbps")}
     print(f"[4 slice] health_labels(extended=True) on {DEVICE} in "
           f"{seconds:.1f} s (per probe, median of 3 included: "
-          f"{probe_seconds} s), kernel launches {launches}")
+          f"{probe_seconds} s), kernel launches {launches}, dma_copy "
+          f"unaligned 0")
     for key in sorted(labels):
         print(f"    {key}={labels[key]}")
     probe_iteration_times("matmul-tflops",

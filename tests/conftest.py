@@ -63,6 +63,8 @@ def pytest_configure(config):
         "with a soak or a cheaper sibling) excluded from the tier-1 "
         "budget's `-m 'not slow'` run; CI's dedicated soak steps and a "
         "`-m slow` run still cover them")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from portbench.metrics import dma_copy_roofline_pct
 from tpufd_torch import _build, dma_copy, health, tune_dma_copy
 
 
@@ -108,32 +109,60 @@ def test_build_targets_hopper(tmp_path):
 
 
 def test_shipped_kernel_is_the_first_tuning_candidate():
-    """The tuning script times the shipped tile, stages and stores in
-    flight first, so PERF.md's winner is what the library builds; every
-    candidate passes the source's static_asserts (a tile a multiple of 128
-    bytes under one barrier phase's 2^20, a stage to store from and one to
-    load into, the ring with its barriers within a block's 227 KB of
-    shared memory)."""
+    """The tuning script times the shipped loads in flight per thread and
+    threads per block first, so PERF.md's winner is what the library
+    builds; every candidate passes the source's static_asserts (whole
+    warps, at most 1024 threads and at least the 14 a chunk's head and
+    tail need, 1 to 32 vectors a thread)."""
     text = (_build.CSRC / "dma_copy.cu").read_text()
     defaults = {name: int(value) for name, value in re.findall(
         r"^#define (TPUFD_DMA_\w+) (\d+)$", text, flags=re.M)}
     assert tune_dma_copy.CANDIDATES[0] == (
-        defaults.pop("TPUFD_DMA_TILE_KIB"), defaults.pop("TPUFD_DMA_STAGES"),
-        defaults.pop("TPUFD_DMA_STORES"))
+        defaults.pop("TPUFD_DMA_VECS"), defaults.pop("TPUFD_DMA_THREADS"))
     assert defaults == {}
-    for tile_kib, stages, stores in tune_dma_copy.CANDIDATES:
-        tile = tile_kib * 1024
-        assert tile % 128 == 0 and tile < 1 << 20 and 1 <= stores < stages
-        assert stages * tile + stages * 8 + 128 <= 232448
+    assert len(set(tune_dma_copy.CANDIDATES)) == len(tune_dma_copy.CANDIDATES)
+    for vecs, threads in tune_dma_copy.CANDIDATES:
+        assert threads % 32 == 0 and 14 <= threads <= 1024
+        assert 1 <= vecs <= 32
 
 
 def test_plan_keys_match_what_the_c_query_fills():
     """launch_plan() names tpufd_dma_copy_plan's plan[0..] in order: one
-    key for each slot the C function writes."""
+    key for each slot the C function writes, the bytes of a sweep last
+    (chip_smoke.py's edge cases are cut from them)."""
     text = (_build.CSRC / "dma_copy.cu").read_text()
-    slots = sorted(int(i) for i in re.findall(r"^  plan\[(\d+)\] = ", text,
-                                              flags=re.M))
-    assert slots == list(range(len(dma_copy.PLAN_KEYS)))
+    slots = dict(re.findall(r"^  plan\[(\d+)\] = (.*);$", text, flags=re.M))
+    assert sorted(map(int, slots)) == list(range(len(dma_copy.PLAN_KEYS)))
+    assert dma_copy.PLAN_KEYS[-1] == "sweep_bytes"
+    assert slots[str(len(slots) - 1)] == "kSweepVecs * 16"
+
+
+def _global_functions():
+    text = (_build.CSRC / "dma_copy.cu").read_text()
+    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                      r"\s+)?(\w+)\s*\(", text)
+
+
+def _cpu_counters():
+    """A CPU call, on an input one element off its allocation's 16-byte
+    alignment, changes neither counter, which no CPU call ever moves."""
+    assert (dma_copy.launches, dma_copy.unaligned_launches) == (0, 0)
+    flat = torch.arange(4 * 16 + 1, dtype=torch.float32).to(torch.bfloat16)
+    got = dma_copy.dma_copy(flat[1:].view(4, 16), 3, 2)
+    assert torch.equal(got.view(torch.int16),
+                       flat[1:].view(4, 16).view(torch.int16))
+    return dma_copy.launches, dma_copy.unaligned_launches
+
+
+@pytest.mark.parametrize("what, got, want", [
+    ("kernel name", _global_functions, lambda: [dma_copy_roofline_pct.KERNEL]),
+    ("cpu counters", _cpu_counters, lambda: (0, 0)),
+], ids=["kernel-name", "cpu-counters"])
+def test_what_the_benchmark_and_the_probe_read(what, got, want):
+    """The source's one __global__ function is the kernel the benchmark's
+    dma_copy_roofline_pct finds by name; on the CPU, launches and
+    unaligned_launches stay 0."""
+    assert got() == want(), what
 
 
 def test_tuning_needs_a_card():

@@ -5,7 +5,10 @@ replaces the Pallas kernel ``tpufd/health.py::_dma_copy_fn``) for a CUDA
 tensor, and runs the plain PyTorch version ``dma_copy_plain`` for a CPU
 tensor. It never falls back from the kernel to the plain version.
 ``launches`` counts kernel launches, so a run can show that its path went
-through the kernel.
+through the kernel. ``unaligned_launches`` counts those of them whose input
+and output are not aligned alike modulo 16 bytes, which the kernel copies
+element by element instead of in 16-byte vectors, so a run can show that
+its launches all took the vector path.
 """
 
 import ctypes
@@ -16,10 +19,12 @@ from tpufd_torch import _build
 
 # Kernel launches made by dma_copy(); the plain version never counts.
 launches = 0
+# Those of them that took the kernel's element-by-element path.
+unaligned_launches = 0
 
 # What launch_plan() reports, in the order tpufd_dma_copy_plan fills it.
-PLAN_KEYS = ("threads", "blocks_per_chunk", "resident_per_sm", "tile_bytes",
-             "stages", "smem_bytes")
+PLAN_KEYS = ("threads", "sweeps_per_chunk", "resident_per_sm",
+             "vecs_per_thread", "sweep_bytes")
 
 _library = None
 
@@ -93,7 +98,7 @@ def dma_copy(x, n, chunks):
     `chunks` row blocks. A CUDA tensor goes through the kernel on the
     current stream (no synchronisation); a CPU tensor through
     dma_copy_plain. Raises on any other device, dtype or shape."""
-    global launches
+    global launches, unaligned_launches
     _check(x, n, chunks)
     if x.device.type == "cpu":
         return dma_copy_plain(x, n, chunks)
@@ -109,4 +114,6 @@ def dma_copy(x, n, chunks):
     if err:
         raise RuntimeError(f"dma_copy kernel launch failed: CUDA error {err}")
     launches += 1
+    if x.data_ptr() % 16 != out.data_ptr() % 16:
+        unaligned_launches += 1
     return out

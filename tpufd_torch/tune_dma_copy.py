@@ -1,14 +1,16 @@
-"""Times the DMA-copy kernel's pipeline candidates on one CUDA card.
+"""Times the DMA-copy kernel's candidates on one CUDA card.
 
     python -m tpufd_torch.tune_dma_copy [--rounds 7]
 
-Builds ``csrc/dma_copy.cu`` once per (tile KiB, stages, stores in flight)
-candidate, one nvcc each with -D flags, all started together, into
-``tune/`` under ``_build.kernel_dir()``, and checks each bit-exact at the
-probe's shape (131072 x 1024 bf16 in 2 chunks). Then, in turns, ``rounds``
-times: every candidate at n 16, the shipped one also at n 4 and 64 (its
-time per repeat stays flat in n when every repeat comes from HBM) and in
-1 and 4 chunks, and one whole-array ``copy_``. Prints the card's
+Builds ``csrc/dma_copy.cu`` once per (16-byte loads in flight per thread,
+threads per block) candidate, one nvcc each with -D flags, all started
+together, into ``tune/`` under ``_build.kernel_dir()``, and checks each
+bit-exact at the probe's shape (131072 x 1024 bf16 in 2 chunks). Then, in
+turns, ``rounds`` times: every candidate at n 16, the shipped one also at
+n 4 and 64 (its time per repeat stays flat in n when every repeat comes
+from HBM) and in 1 and 4 chunks, one whole-array ``copy_``, and the HBM
+probe's ``neg_`` stream (``health._stream`` on its 512 MiB buffer) per
+512 MiB moved, the bytes of one copy repeat. Prints the card's
 ``nvidia-smi`` name and power limit, each run's ms per repeat (median,
 min, max) with its launch plan, and a JSON line of the same.
 Exits non-zero without a card or if a candidate fails to build or to copy.
@@ -25,36 +27,38 @@ import torch
 
 from tpufd_torch import _build, dma_copy, health
 
-# (tile KiB, stages, stores in flight): the shipped defaults first; one,
-# two or four blocks per SM by shared memory.
-CANDIDATES = ((32, 6, 1), (32, 6, 2), (32, 6, 3), (64, 3, 1), (16, 12, 1),
-              (16, 12, 3), (16, 12, 6), (8, 24, 1), (16, 6, 1), (32, 3, 1),
-              (32, 3, 2), (8, 6, 1))
+# (16-byte loads in flight per thread, threads per block): the shipped
+# defaults first.
+CANDIDATES = ((1, 256), (1, 128), (1, 512), (1, 1024), (2, 128), (2, 256),
+              (2, 512), (4, 128), (4, 256), (8, 128), (8, 256))
 SHAPE = health._dma_copy_shape(256, 2)
 CHUNKS = 2
+STREAM_MIB = 512  # health.hbm_gbps's buffer
 
 
 def name_of(candidate):
-    return "T{}K-S{}-W{}".format(*candidate)
+    return "K{}-T{}".format(*candidate)
 
 
 def build(candidate):
     """Starts nvcc for one candidate: (process, library path)."""
-    tile, stages, stores = candidate
+    vecs, threads = candidate
     target = (_build.kernel_dir() / "tune"
               / f"libdma_copy-{name_of(candidate)}.so")
     target.parent.mkdir(parents=True, exist_ok=True)
     cmd = _build.nvcc_command("dma_copy", target)
-    cmd[1:1] = [f"-DTPUFD_DMA_TILE_KIB={tile}", f"-DTPUFD_DMA_STAGES={stages}",
-                f"-DTPUFD_DMA_STORES={stores}"]
+    cmd[1:1] = [f"-DTPUFD_DMA_VECS={vecs}", f"-DTPUFD_DMA_THREADS={threads}"]
     return subprocess.Popen(cmd, text=True, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT), target
 
 
 def ms_per_repeat(fn, n, reps):
-    """Device ms per repeat of fn() over `reps` calls, after a warm-up."""
+    """Device ms per repeat of fn() over `reps` calls, after a warm-up. A
+    second call keeps the device busy while the window opens, so the
+    window holds no wait for the host's first launch."""
     fn()
     torch.cuda.synchronize()
+    fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -118,6 +122,13 @@ def main(argv=None):
     runs += [(f"{shipped} chunks {c}",
               lambda c=c: launch(libs[shipped], 16, c), 16) for c in (1, 4)]
     runs.append(("copy_", lambda: out.copy_(x), 1))
+    # Timed per copy repeat's bytes: a flip of the stream's buffer moves
+    # per_flip times as many.
+    flipped = torch.zeros(STREAM_MIB * 2**20 // 2, dtype=torch.bfloat16,
+                          device="cuda")
+    per_flip = STREAM_MIB * 2**20 // (x.numel() * x.element_size())
+    runs.append(("neg_ stream", lambda: health._stream(flipped, 16),
+                 16 * per_flip))
     times = {name: [] for name, _, _ in runs}
     for _ in range(args.rounds):
         for name, fn, n in runs:
@@ -131,14 +142,19 @@ def main(argv=None):
         plan = plans.get(name)
         summary[name] = {"median": statistics.median(ts), "min": min(ts),
                          "max": max(ts), "plan": plan}
-        where = (f"; {plan['blocks_per_chunk']} blocks/chunk, "
-                 f"{plan['resident_per_sm']}/SM, {plan['smem_bytes']} B"
-                 if plan else "")
+        where = (f"; {plan['resident_per_sm']} blocks/SM, "
+                 f"{plan['sweep_bytes']} B a sweep" if plan else "")
         print(f"  {name:<16} median {summary[name]['median']:.4f} "
               f"min {min(ts):.4f} max {max(ts):.4f} "
               f"({bound_ms / summary[name]['median']:.1%} of bound{where})")
+    by_n = [summary[name]["median"] for name in
+            (f"{shipped} n 4", shipped, f"{shipped} n 64")]
+    flat = max(by_n) / min(by_n) - 1
+    print(f"  {shipped} at n 4, 16, 64: widest over narrowest {flat:.2%} "
+          f"(every repeat from HBM keeps it within about 1%)")
     print(json.dumps({"card": card, "shape": list(SHAPE), "chunks": CHUNKS,
-                      "bound_ms": bound_ms, "ms_per_repeat": summary}))
+                      "bound_ms": bound_ms, "flat_in_n": flat,
+                      "ms_per_repeat": summary}))
     return 0
 
 
