@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from portbench.metrics import dma_copy_roofline_pct
-from tpufd_torch import _build, dma_copy, health, tune_dma_copy
+from tpufd_torch import _build, dma_copy, health
 
 
 def bf16_pair(rows, cols, seed):
@@ -108,24 +108,6 @@ def test_build_targets_hopper(tmp_path):
     assert "-shared" in cmd and cmd[-1].endswith("csrc/dma_copy.cu")
 
 
-def test_shipped_kernel_is_the_first_tuning_candidate():
-    """The tuning script times the shipped loads in flight per thread and
-    threads per block first, so PERF.md's winner is what the library
-    builds; every candidate passes the source's static_asserts (whole
-    warps, at most 1024 threads and at least the 14 a chunk's head and
-    tail need, 1 to 32 vectors a thread)."""
-    text = (_build.CSRC / "dma_copy.cu").read_text()
-    defaults = {name: int(value) for name, value in re.findall(
-        r"^#define (TPUFD_DMA_\w+) (\d+)$", text, flags=re.M)}
-    assert tune_dma_copy.CANDIDATES[0] == (
-        defaults.pop("TPUFD_DMA_VECS"), defaults.pop("TPUFD_DMA_THREADS"))
-    assert defaults == {}
-    assert len(set(tune_dma_copy.CANDIDATES)) == len(tune_dma_copy.CANDIDATES)
-    for vecs, threads in tune_dma_copy.CANDIDATES:
-        assert threads % 32 == 0 and 14 <= threads <= 1024
-        assert 1 <= vecs <= 32
-
-
 def test_plan_keys_match_what_the_c_query_fills():
     """launch_plan() names tpufd_dma_copy_plan's plan[0..] in order: one
     key for each slot the C function writes, the bytes of a sweep last
@@ -134,7 +116,7 @@ def test_plan_keys_match_what_the_c_query_fills():
     slots = dict(re.findall(r"^  plan\[(\d+)\] = (.*);$", text, flags=re.M))
     assert sorted(map(int, slots)) == list(range(len(dma_copy.PLAN_KEYS)))
     assert dma_copy.PLAN_KEYS[-1] == "sweep_bytes"
-    assert slots[str(len(slots) - 1)] == "kSweepVecs * 16"
+    assert slots[str(len(slots) - 1)] == "kThreads * 16"
 
 
 def _global_functions():
@@ -163,11 +145,6 @@ def test_what_the_benchmark_and_the_probe_read(what, got, want):
     dma_copy_roofline_pct finds by name; on the CPU, launches and
     unaligned_launches stay 0."""
     assert got() == want(), what
-
-
-def test_tuning_needs_a_card():
-    with pytest.raises(SystemExit, match="no CUDA device"):
-        tune_dma_copy.main(["--rounds", "1"])
 
 
 def test_library_is_keyed_on_the_source(tmp_path, monkeypatch):

@@ -8,7 +8,7 @@ per repeat flat in n. Skips without a card; on one:
 import pytest
 import torch
 
-from tpufd_torch import dma_copy, health, tune_dma_copy
+from tpufd_torch import dma_copy, health
 
 PROBE_SHAPE = health._dma_copy_shape(256, 2)
 
@@ -66,11 +66,13 @@ def test_time_per_repeat_is_flat_in_n(card):
     """At the probe's shape, ms per repeat at n 4, 16 and 64 within 1% of
     each other: a repeat served from L2 would run faster than one from
     HBM."""
+    import chip_smoke
+
     x = torch.randn(PROBE_SHAPE, device=card).to(torch.bfloat16)
     dma_copy.dma_copy(x, 1, 2)
     per_repeat = {
-        n: min(tune_dma_copy.ms_per_repeat(
-            lambda n=n: dma_copy.dma_copy(x, n, 2), n, 5) for _ in range(5))
+        n: min(chip_smoke.cuda_ms(lambda n=n: dma_copy.dma_copy(x, n, 2), 5)
+               / n for _ in range(5))
         for n in (4, 16, 64)}
     assert max(per_repeat.values()) / min(per_repeat.values()) < 1.01, \
         per_repeat

@@ -30,8 +30,8 @@ from tpufd_torch import burnin, health, launch, mesh as mesh_lib, spans
 PREFIX = "google.com/tpu.health."
 SECONDS = 0.25  # what the stubbed timer reports in both packages
 SPAWN_TIMEOUT = 150
-# ici_axis_gbps over a 2x2 coordinate grid (x, y), as the reference's
-# physical mesh lays a 2x2 slice out.
+# Devices on a 2x2 coordinate grid (x, y), as the reference's physical
+# mesh lays a 2x2 slice out.
 GRID_2X2 = [types.SimpleNamespace(coords=(x, y, 0))
             for x in range(2) for y in range(2)]
 LR = 0.1
@@ -154,16 +154,20 @@ def unequal_ranks_ladder():
     return every
 
 
+def shifted(shard, n, mesh, axis):
+    """Every rank's shard after n ring shifts along `axis`, gathered."""
+    for _ in range(n):
+        (shard,) = burnin.ring_shift([shard], mesh, axis)
+    return gather(shard)
+
+
 def probe_checks():
-    """The all-reduce step and loop, the ring shift and both probes."""
+    """The all-reduce step and loop, the ring shift and the probe."""
     me, n = dist.get_rank(), dist.get_world_size()
     flat = init_device_mesh("cpu", (n,), mesh_dim_names=("all",))
-    grid = health.physical_mesh(GRID_2X2, "cpu")
+    grid = init_device_mesh("cpu", (2, 2), mesh_dim_names=("x", "y"))
     group = flat.get_group("all")
-    cards = [torch.device("cuda", i) for i in range(n)]
-    out = {"grid_names": grid.mesh_dim_names,
-           "grid_ranks": grid.mesh.tolist(),
-           "cards_names": health.physical_mesh(cards, "cpu").mesh_dim_names}
+    out = {}
     rows = allreduce_rows(n)
     for dtype in (torch.float32, torch.bfloat16):
         row = torch.from_numpy(rows[me]).to(dtype)
@@ -171,25 +175,18 @@ def probe_checks():
     # Ring shifts of a rank-stamped shard, on the flat mesh and along
     # each axis of the grid.
     shard = torch.full((4, 8), float(me), dtype=torch.bfloat16)
-    out["shift_1"] = gather(health._shift_loop(shard, 1, flat, "all"))
-    out["shift_n"] = gather(health._shift_loop(shard, n, flat, "all"))
+    out["shift_1"] = shifted(shard, 1, flat, "all")
+    out["shift_n"] = shifted(shard, n, flat, "all")
     for axis in grid.mesh_dim_names:
-        out[f"shift_{axis}"] = gather(health._shift_loop(shard, 1, grid,
-                                                          axis))
-    # Real probes, at small sizes.
+        out[f"shift_{axis}"] = shifted(shard, 1, grid, axis)
+    # The real probe, at a small size.
     out["allreduce_real"] = health.allreduce_gbps(flat, mib=1, iters=2)
-    out["ici_real"] = {axis: health.ici_axis_gbps(grid, axis, mib=1,
-                                                  iters=2)
-                       for axis in grid.mesh_dim_names}
     out["unequal_ranks"] = unequal_ranks_ladder()
-    # The byte formulas, timer stubbed.
+    # The byte formula, timer stubbed.
     real_timer = health._time_iters
     health._time_iters = fixed_timer
     try:
         out["allreduce_formula"] = health.allreduce_gbps(flat, mib=8)
-        out["ici_formula"] = {axis: health.ici_axis_gbps(grid, axis, mib=4,
-                                                         iters=2)
-                              for axis in grid.mesh_dim_names}
     finally:
         health._time_iters = real_timer
     return out
@@ -321,44 +318,6 @@ def two_ranks(cpu_jax):
 
 # ---- the probes -------------------------------------------------------------
 
-def test_coords_grid_matches_the_reference_cases(cpu_jax):
-    """_coords_grid on every case of tpufd's test_coords_grid_arrangement:
-    the same shape, axis names and device at each grid position."""
-    from tpufd import health as ref
-
-    def dev(*coords):
-        return types.SimpleNamespace(coords=coords)
-
-    cases = [
-        [dev(x, y, 0) for x in range(2) for y in range(2)],
-        [dev(x, 5, 3) for x in range(4)],
-        [dev(0, 0, 0)],
-        [dev(0, 0, 0), dev(0, 0, 0)],
-        [dev(0, 0, 0), dev(1, 1, 0), dev(0, 1, 0)],
-        [object(), object()],
-        [torch.device("cuda", 0), torch.device("cuda", 1)],
-    ]
-    for devices in cases:
-        got, want = health._coords_grid(devices), ref._coords_grid(devices)
-        assert got[1] == want[1]
-        if want[0] is None:
-            assert got[0] is None
-        else:
-            assert got[0].shape == want[0].shape
-            assert all(a is b for a, b in zip(got[0].flat, want[0].flat))
-    grid, names = health._coords_grid(cases[0])
-    assert names == ("x", "y") and grid[1, 0] is cases[0][2]
-
-
-def test_physical_mesh_lays_ranks_out_on_the_grid(four_ranks):
-    """A 2x2 coordinate grid becomes an (x, y) mesh, rank r standing for
-    devices[r]; CUDA cards, with no coords, give the flat mesh."""
-    probes = four_ranks["probes"]
-    assert probes["grid_names"] == ("x", "y")
-    assert probes["grid_ranks"] == [[0, 1], [2, 3]]
-    assert probes["cards_names"] == ("all",)
-
-
 @pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
 def test_one_allreduce_step_equals_the_reference_sum(cpu_jax, four_ranks,
                                                      dtype):
@@ -393,24 +352,18 @@ def test_ring_shift_moves_each_shard_to_the_next_rank(four_ranks):
 
 def test_probe_byte_formulas_equal_the_reference(cpu_jax, four_ranks,
                                                  monkeypatch):
-    """allreduce_gbps and ici_axis_gbps with the timer reporting the same
-    seconds in both packages: equal to 1e-9, the reference's count of all
-    n elements per all-reduce step included."""
+    """allreduce_gbps with the timer reporting the same seconds in both
+    packages: equal to 1e-9, the reference's count of all n elements per
+    all-reduce step included."""
     from jax.sharding import Mesh
 
     from tpufd import health as ref
 
     monkeypatch.setattr(ref, "_time_iters", lambda fn, iters, settle_s:
                         SECONDS)
-    devices = cpu_jax.devices("cpu")[:4]
-    flat = Mesh(np.array(devices), ("all",))
-    grid = Mesh(np.array(devices).reshape(2, 2), ("x", "y"))
-    probes = four_ranks["probes"]
-    assert probes["allreduce_formula"] == pytest.approx(
+    flat = Mesh(np.array(cpu_jax.devices("cpu")[:4]), ("all",))
+    assert four_ranks["probes"]["allreduce_formula"] == pytest.approx(
         ref.allreduce_gbps(flat, mib=8), rel=1e-9)
-    for axis in ("x", "y"):
-        assert probes["ici_formula"][axis] == pytest.approx(
-            ref.ici_axis_gbps(grid, axis, mib=4, iters=2), rel=1e-9)
 
 
 def test_reference_all_reduce_carries_one_row_per_device(cpu_jax,
@@ -445,8 +398,6 @@ def test_real_probes_over_gloo_are_finite_and_positive(four_ranks):
     probes = four_ranks["probes"]
     assert math.isfinite(probes["allreduce_real"])
     assert probes["allreduce_real"] > 0
-    for axis in ("x", "y"):
-        assert probes["ici_real"][axis] > 0
 
 
 def test_ranks_of_unequal_speed_skip_to_one_length(four_ranks):
@@ -632,45 +583,21 @@ def test_allreduce_failure_sets_ok_false(monkeypatch):
     assert [c[:3] for c in recorder.calls] == [("_allreduce_rank", 2, "cpu")]
 
 
-@pytest.mark.parametrize("fail", [(), ("_ici_axis_rank",)])
-def test_ici_sweep_runs_one_spawn_per_grid_axis(cpu_jax, monkeypatch,
-                                                capsys, fail):
-    """Devices on a 2x2 grid: one ici-<axis>-gbps label per axis, each
-    from its own spawn over all devices, the key set equal to tpufd's
-    with its physical mesh substituted (test_ici_sweep_labels_cpu). A
-    failing axis writes a stderr note and leaves ok=true."""
-    import jax
-    from jax.sharding import Mesh
-
-    from tpufd import health as ref
-
-    stub_core_probes(monkeypatch, ref)
-    devices = jax.devices("cpu")[:4]
-    monkeypatch.setattr(ref.jax, "devices", lambda *a: devices)
-    monkeypatch.setattr(ref, "allreduce_gbps", lambda mesh, mib: 1.0)
-    monkeypatch.setattr(ref, "ici_axis_gbps",
-                        lambda mesh, axis, mib: 1.0)
-    monkeypatch.setattr(ref, "physical_mesh", lambda d: Mesh(
-        np.array(devices).reshape(2, 2), ("x", "y")))
-    want = set(ref.health_labels())
+def test_grid_devices_get_the_all_reduce_alone(monkeypatch, capsys):
+    """Devices on a 2x2 coordinate grid: where the reference sweeps one
+    ici-<axis>-gbps label per axis, the port runs the all-reduce alone
+    (CUDA cards form no grid), publishes no ici-* key and stays ok."""
     stub_core_probes(monkeypatch, health)
     monkeypatch.setattr(health, "_visible_devices", lambda device: GRID_2X2)
-    recorder = SpawnRecorder(fail=fail)
+    recorder = SpawnRecorder()
     monkeypatch.setattr(health.launch, "spawn_ranks", recorder)
     labels = health.health_labels(device="cpu")
     assert labels[PREFIX + "ok"] == "true"
-    assert [c[:3] for c in recorder.calls] == [
-        ("_allreduce_rank", 4, "cpu"), ("_ici_axis_rank", 4, "cpu"),
-        ("_ici_axis_rank", 4, "cpu")]
-    assert [c[3][2:] for c in recorder.calls[1:]] == [("x", 4), ("y", 4)]
-    if fail:
-        assert set(labels) == want - {PREFIX + "ici-x-gbps",
-                                      PREFIX + "ici-y-gbps"}
-        err = capsys.readouterr().err
-        assert "ici sweep axis x skipped" in err
-        assert "ici sweep axis y skipped" in err
-    else:
-        assert set(labels) == want
+    assert [c[:4] for c in recorder.calls] == [
+        ("_allreduce_rank", 4, "cpu", ("cpu", 8))]
+    assert PREFIX + "allreduce-gbps" in labels
+    assert not any("ici-" in key for key in labels)
+    assert capsys.readouterr().err == ""
 
 
 def test_perfmodel_measures_ici_over_the_usable_cards(monkeypatch):

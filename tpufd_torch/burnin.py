@@ -12,12 +12,12 @@ given a ('data', 'model') DeviceMesh, sharded as the reference shards it:
 DTensor placements stand for its NamedShardings (``param_placements``,
 ``batch_placements``), and DTensor inserts the collectives XLA inserts.
 ``ring_attention`` is the reference's context-parallel attention: kv
-blocks rotate around one mesh axis by point-to-point exchange under a
-streaming softmax, checked against ``full_attention`` by
-``run_ring_attention_burnin``. ``sharded_loss`` and ``ring_acceptance``
-are the rank-side bodies of the multi-card ``burnin`` command, one
-process group each; ``sharded_acceptance`` runs both in one, for the
-hermetic dry run.
+blocks rotate around one mesh axis by point-to-point exchange
+(``ring_shift``) under a streaming softmax, checked against
+``full_attention`` by ``run_ring_attention_burnin``. ``sharded_loss``
+and ``ring_acceptance`` are the rank-side bodies of the multi-card
+``burnin`` command, one process group each; ``sharded_acceptance`` runs
+both in one, for the hermetic dry run.
 Mesh functions run on every rank of the process group (see
 ``tpufd_torch.launch``).
 """
@@ -37,7 +37,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
 
 from tpufd_torch import mesh as mesh_lib
 from tpufd_torch import metrics
-from tpufd_torch.health import resolve_device, ring_shift
+from tpufd_torch.health import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -238,6 +238,32 @@ def full_attention(q, k, v, causal=False):
         s = s.masked_fill(pos[None, None, :] > pos[None, :, None], -math.inf)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hqk,hkd->hqd", p, v.float()).to(q.dtype)
+
+
+def ring_shift(tensors, mesh, axis):
+    """Sends this rank's `tensors` to its +1 neighbour along `axis` of
+    `mesh` (in mesh order, wrapping) and returns the -1 neighbour's, in
+    fresh buffers, in one batch_isend_irecv: the reference's
+    lax.ppermute over perm [(i, i + 1 mod n)]. An axis of one rank keeps
+    its own tensors."""
+    dim = mesh.mesh_dim_names.index(axis)
+    coord = mesh.get_coordinate()
+    line = mesh.mesh[tuple(slice(None) if d == dim else c
+                           for d, c in enumerate(coord))].tolist()
+    n, me = len(line), coord[dim]
+    if n == 1:
+        return list(tensors)
+    group = mesh.get_group(axis)
+    dst, src = line[(me + 1) % n], line[(me - 1) % n]
+    tensors = [t.contiguous() for t in tensors]  # what P2P sends take
+    received = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for tag, (t, r) in enumerate(zip(tensors, received)):
+        ops += [dist.P2POp(dist.isend, t, dst, group, tag),
+                dist.P2POp(dist.irecv, r, src, group, tag)]
+    for request in dist.batch_isend_irecv(ops):
+        request.wait()
+    return received
 
 
 def ring_attention(q, k, v, mesh, axis, causal=False):

@@ -26,18 +26,19 @@
 // drift apart and spread the traffic over the whole array. A grid whose
 // blocks the hardware starts in order keeps it in one narrow front, and
 // passes copy_ (PERF.md keeps the measurements).
-//  - The grid. Block (x, y, z) copies one sweep of kThreads x kVecs
-//    16-byte vectors: sweep x / chunks of chunk x % chunks, in repeat
+//  - The grid. Block (x, y, z) copies one sweep of kThreads 16-byte
+//    vectors, one a thread: sweep x / chunks of chunk x % chunks, in repeat
 //    y + z * 65535 (grid y and z hold n). Blocks start in the order of
 //    their index, so each repeat sweeps every chunk from front to back,
 //    the chunks together (as the TPU kernel starts every chunk's DMA
 //    before it waits), and the next repeat starts only behind it.
-//  - Loads in flight. Thread t of a sweep loads vectors t, t + kThreads,
-//    ... (kVecs of them, neighbouring threads on neighbouring addresses)
-//    before it stores any. The SM holds as many blocks as its registers
-//    and threads allow, 2048 threads: 32 KiB in flight at one vector a
-//    thread, above the ~20 KiB an SM that Little's law asks of DRAM's
-//    latency at 3.35 TB/s.
+//  - Loads in flight. Thread t of a sweep loads vector t (neighbouring
+//    threads on neighbouring addresses) and stores it. The SM holds as
+//    many blocks as its registers and threads allow, 2048 threads: 32 KiB
+//    in flight, above the ~20 KiB an SM that Little's law asks of DRAM's
+//    latency at 3.35 TB/s. One vector a thread and 256 threads a block won
+//    on the card against more vectors a thread and other block sizes
+//    (PERF.md keeps the times).
 //  - Cache hints. Loads and stores are streaming (.cs, evict-first in L1
 //    and L2): no byte is used twice within a repeat.
 //  - Every repeat from HBM. An address comes back only in the next
@@ -50,39 +51,25 @@
 //    element, once a repeat, by threads of the chunk's first sweep. An
 //    input and output that are not aligned alike modulo 16 are copied
 //    element by element in full (the wrapper counts such launches).
-//  - Loads in flight per thread and threads per block are compile-time
-//    constants (the macros below), chosen by measurement on the card with
-//    `python -m tpufd_torch.tune_dma_copy`; PERF.md keeps their times.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#ifndef TPUFD_DMA_VECS
-#define TPUFD_DMA_VECS 1
-#endif
-#ifndef TPUFD_DMA_THREADS
-#define TPUFD_DMA_THREADS 256
-#endif
-
 namespace {
 
-constexpr int kThreads = TPUFD_DMA_THREADS;
-constexpr int kVecs = TPUFD_DMA_VECS;  // 16-byte loads in flight a thread
-constexpr long long kSweepVecs = static_cast<long long>(kThreads) * kVecs;
+constexpr int kThreads = 256;  // a block's threads: one 16-byte vector each
 constexpr long long kMaxGridX = 2147483647;  // a grid's x extent
 constexpr long long kMaxGridYZ = 65535;      // its y and z extents
 
 static_assert(kThreads % 32 == 0 && kThreads <= 1024,
               "whole warps, at most a block's 1024 threads");
 static_assert(kThreads >= 14, "head and tail are at most 7 elements each");
-// The vectors of one sweep live in registers; at most 255 a thread.
-static_assert(kVecs >= 1 && kVecs <= 32, "loads in flight a thread");
 
 // Sweeps a chunk of `chunk_elems` elements takes, counted as if its body
 // were all of it: an aligned body is shorter by its head and tail.
 __host__ __device__ __forceinline__ long long sweeps_of(long long chunk_elems) {
-  return (chunk_elems + kSweepVecs * 8 - 1) / (kSweepVecs * 8);
+  return (chunk_elems + kThreads * 8 - 1) / (kThreads * 8);
 }
 
 __device__ __forceinline__ uint4 load_streaming(const uint4* p) {
@@ -115,11 +102,11 @@ __global__ void __launch_bounds__(kThreads)
 
   if ((reinterpret_cast<uintptr_t>(in) & 15) !=
       (reinterpret_cast<uintptr_t>(out) & 15)) {
-    // Not aligned alike: the sweep's elements one by one, kVecs x 8 a
-    // thread, neighbouring threads on neighbouring elements.
-    const long long first = sweep * kSweepVecs * 8 + threadIdx.x;
+    // Not aligned alike: the sweep's elements one by one, 8 a thread,
+    // neighbouring threads on neighbouring elements.
+    const long long first = sweep * kThreads * 8 + threadIdx.x;
 #pragma unroll
-    for (int k = 0; k < kVecs * 8; ++k) {
+    for (int k = 0; k < 8; ++k) {
       const long long i = first + static_cast<long long>(k) * kThreads;
       if (i < chunk_elems) dst[i] = src[i];
     }
@@ -138,32 +125,11 @@ __global__ void __launch_bounds__(kThreads)
     if (i < chunk_elems) dst[i] = src[i];
   }
 
-  const long long v = sweep * kSweepVecs + threadIdx.x;
-  const uint4* from = reinterpret_cast<const uint4*>(src + head) + v;
-  uint4* to = reinterpret_cast<uint4*>(dst + head) + v;
-  uint4 data[kVecs];
-  if (v + (kVecs - 1) * static_cast<long long>(kThreads) < vecs) {
-#pragma unroll
-    for (int k = 0; k < kVecs; ++k) {
-      data[k] = load_streaming(from + k * kThreads);
-    }
-#pragma unroll
-    for (int k = 0; k < kVecs; ++k) {
-      store_streaming(to + k * kThreads, data[k]);
-    }
-  } else {  // the body's last, shorter sweep
-#pragma unroll
-    for (int k = 0; k < kVecs; ++k) {
-      if (v + k * kThreads < vecs) {
-        data[k] = load_streaming(from + k * kThreads);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kVecs; ++k) {
-      if (v + k * kThreads < vecs) {
-        store_streaming(to + k * kThreads, data[k]);
-      }
-    }
+  const long long v = sweep * kThreads + threadIdx.x;
+  if (v < vecs) {
+    const uint4 data =
+        load_streaming(reinterpret_cast<const uint4*>(src + head) + v);
+    store_streaming(reinterpret_cast<uint4*>(dst + head) + v, data);
   }
 }
 
@@ -197,9 +163,9 @@ extern "C" int tpufd_dma_copy(const void* in, void* out, long long rows,
 }
 
 // The launch tpufd_dma_copy makes for this shape on the current device, as
-// plan[0..4]: threads per block, blocks (sweeps) per chunk and repeat,
-// resident blocks per SM, 16-byte loads in flight per thread, and bytes per
-// block sweep. Returns a cudaError_t as tpufd_dma_copy does.
+// plan[0..3]: threads per block, blocks (sweeps) per chunk and repeat,
+// resident blocks per SM, and bytes per block sweep. Returns a cudaError_t
+// as tpufd_dma_copy does.
 extern "C" int tpufd_dma_copy_plan(long long rows, long long cols,
                                    int chunks, long long* plan) {
   if (!shape_ok(rows, cols, chunks)) {
@@ -212,7 +178,6 @@ extern "C" int tpufd_dma_copy_plan(long long rows, long long cols,
   plan[0] = kThreads;
   plan[1] = sweeps_of(rows / chunks * cols);
   plan[2] = resident;
-  plan[3] = kVecs;
-  plan[4] = kSweepVecs * 16;
+  plan[3] = kThreads * 16;
   return static_cast<int>(cudaSuccess);
 }

@@ -24,7 +24,7 @@ unaligned_launches = 0
 
 # What launch_plan() reports, in the order tpufd_dma_copy_plan fills it.
 PLAN_KEYS = ("threads", "sweeps_per_chunk", "resident_per_sm",
-             "vecs_per_thread", "sweep_bytes")
+             "sweep_bytes")
 
 _library = None
 

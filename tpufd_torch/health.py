@@ -10,10 +10,12 @@ runs the same probes through ``tpufd_torch.perfmodel``. Three probes:
   - with ``extended=True``, the DMA-copy probe (``dma_copy_gbps``), which
     runs the hand-written CUDA copy kernel of ``tpufd_torch.dma_copy``.
 
-With more than one card, two multi-device probes run on every rank of a
-process group, one rank per card (``tpufd_torch.launch``): the all-reduce
-(``allreduce_gbps``, NCCL) and, over a coordinate grid of devices, the
-per-axis ring (``ici_axis_gbps``, point-to-point sends).
+With more than one card, the all-reduce (``allreduce_gbps``, NCCL) runs
+on every rank of a process group, one rank per card
+(``tpufd_torch.launch``). The reference also sweeps a ring along each
+axis of a TPU slice's coordinate grid; CUDA cards expose no coordinates,
+so a CUDA node has no per-axis ring and the port publishes no
+``ici-<axis>-gbps`` label.
 
 Timing is differential, as in the reference: t(2n) - t(n) over salted
 inputs, median of 3 pairs, loop length grown by 4 until the difference is
@@ -41,10 +43,9 @@ import statistics
 import sys
 import time
 
-import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.device_mesh import init_device_mesh
 
 from tpufd_torch import chain_tail as chain_tail_lib
 from tpufd_torch import dma_copy as dma_copy_lib
@@ -310,6 +311,16 @@ def _settle_s(device):
     return 0.15 if device.type == "cuda" else 0.02
 
 
+def probe_sizes(device):
+    """(matmul size, stream MiB, all-reduce MiB) of the probes that
+    health_labels and perfmodel.measure run on `device`: the card's on a
+    card (the benchmark's configurations cite them), small on the CPU.
+    The DMA-copy probe copies half the stream's MiB."""
+    if device.type == "cuda":
+        return 4096, 512, 64
+    return 512, 32, 8
+
+
 def _matmul_chain(x, n):
     """n steps of acc <- tanh(acc @ acc) * 0.5 + acc * 0.5 (the reference's
     _matmul_chain), in place on x, which it returns. Each step is one
@@ -426,107 +437,11 @@ def allreduce_gbps(mesh, mib=64, iters=8):
         return bytes_moved / seconds / 1e9
 
 
-def _coords_grid(devices):
-    """Arranges devices into a dense coordinate grid: (ndarray, axis
-    names) with size-1 axes dropped, or (None, None) when the devices
-    don't form one: coords missing (CUDA and CPU devices expose none),
-    duplicated, or sparse (a non-contiguous box). The reference's
-    arrangement logic, unchanged."""
-    coords = [getattr(d, "coords", None) for d in devices]
-    if (any(c is None for c in coords)
-            or len({tuple(c) for c in coords}) != len(devices)):
-        return None, None
-    dims = len(coords[0])
-    lo = [min(c[i] for c in coords) for i in range(dims)]
-    shape = [max(c[i] for c in coords) - lo[i] + 1 for i in range(dims)]
-    if int(np.prod(shape)) != len(devices):
-        return None, None  # sparse box: no well-defined ring per axis
-    grid = np.empty(shape, dtype=object)
-    for d, c in zip(devices, coords):
-        grid[tuple(ci - li for ci, li in zip(c, lo))] = d
-    keep = [i for i, s in enumerate(shape) if s > 1] or [0]
-    return (grid.reshape([shape[i] for i in keep]),
-            tuple("xyz"[i] if i < 3 else f"d{i}" for i in keep))
-
-
-def physical_mesh(devices, device_type):
-    """DeviceMesh over the devices' coordinate grid (axes x/y/z), rank r
-    standing for devices[r], or a flat ("all",) mesh when they form none,
-    as for every CUDA card. Runs on every rank, with the same devices."""
-    grid, names = _coords_grid(devices)
-    if grid is None:
-        return init_device_mesh(device_type, (len(devices),),
-                                mesh_dim_names=("all",))
-    rank_of = {id(d): r for r, d in enumerate(devices)}
-    ranks = np.vectorize(lambda d: rank_of[id(d)], otypes=[np.int64])(grid)
-    return DeviceMesh(device_type, torch.from_numpy(ranks),
-                      mesh_dim_names=names)
-
-
-def ring_shift(tensors, mesh, axis):
-    """Sends this rank's `tensors` to its +1 neighbour along `axis` of
-    `mesh` (in mesh order, wrapping) and returns the -1 neighbour's, in
-    fresh buffers, in one batch_isend_irecv: the reference's
-    lax.ppermute over perm [(i, i + 1 mod n)]. An axis of one rank keeps
-    its own tensors."""
-    dim = mesh.mesh_dim_names.index(axis)
-    coord = mesh.get_coordinate()
-    line = mesh.mesh[tuple(slice(None) if d == dim else c
-                           for d, c in enumerate(coord))].tolist()
-    n, me = len(line), coord[dim]
-    if n == 1:
-        return list(tensors)
-    group = mesh.get_group(axis)
-    dst, src = line[(me + 1) % n], line[(me - 1) % n]
-    tensors = [t.contiguous() for t in tensors]  # what P2P sends take
-    received = [torch.empty_like(t) for t in tensors]
-    ops = []
-    for tag, (t, r) in enumerate(zip(tensors, received)):
-        ops += [dist.P2POp(dist.isend, t, dst, group, tag),
-                dist.P2POp(dist.irecv, r, src, group, tag)]
-    for request in dist.batch_isend_irecv(ops):
-        request.wait()
-    return received
-
-
-def _shift_loop(x, n, mesh, axis):
-    """n ring shifts of x along `axis`."""
-    for _ in range(n):
-        (x,) = ring_shift([x], mesh, axis)
-    return x
-
-
-def ici_axis_gbps(mesh, axis, mib=64, iters=8):
-    """Per-device send throughput (GB/s) around ONE mesh axis, on every
-    rank: each rank's shard of a (rows, 1024) bf16 array of about mib MiB
-    goes to its +1 neighbour on the axis, `iters` times, so the traffic
-    rides that axis's links alone (the reference's ppermute ring)."""
-    with spans.span("probe", probe=f"ici-{axis}-gbps"):
-        n_axis = mesh.size(mesh.mesh_dim_names.index(axis))
-        cols = 1024
-        rows = max(mib * 1024 * 1024 // 2 // cols // n_axis, 1) * n_axis
-        device = resolve_device(mesh.device_type)
-        # ones, not zeros: the salt folds in multiplicatively.
-        x = torch.ones((rows // n_axis, cols), dtype=torch.bfloat16,
-                       device=device)
-        seconds = _time_iters(
-            lambda k, salt: _shift_loop(x * salt, k, mesh, axis), iters,
-            settle_s=_settle_s(device), agree_on=device)
-        bytes_sent_per_device = rows * cols * 2 / n_axis
-        return bytes_sent_per_device * iters / seconds / 1e9
-
-
 def _allreduce_rank(device_type, mib):
     """Rank body of the all-reduce label: median of 3 over every rank."""
     mesh = init_device_mesh(device_type, (dist.get_world_size(),),
                             mesh_dim_names=("all",))
     return median_probe(lambda: allreduce_gbps(mesh, mib=mib))
-
-
-def _ici_axis_rank(devices, device_type, axis, mib):
-    """Rank body of one ici-<axis>-gbps label: median of 3."""
-    mesh = physical_mesh(devices, device_type)
-    return median_probe(lambda: ici_axis_gbps(mesh, axis, mib=mib))
 
 
 def median_probe(fn, runs=3):
@@ -571,17 +486,13 @@ def health_labels(prefix="google.com/tpu.health.", extended=False,
 
     With more than one visible card, allreduce-gbps (median of 3) runs
     over all of them, one rank per card (launch.spawn_ranks: NCCL on the
-    cards); its failure sets ok=false. Then, where the cards form a
-    coordinate grid (_coords_grid; CUDA cards expose none, so never on a
-    CUDA node), one ici-<axis>-gbps label per axis, each in its own try:
-    a failed axis writes a stderr note and leaves ok alone.
+    cards); its failure sets ok=false. No ici-<axis>-gbps label follows:
+    the reference sweeps the axes of a TPU slice's coordinate grid, and
+    CUDA cards form none.
     """
     device = resolve_device(device)
-    on_card = device.type == "cuda"
-    devices = _visible_devices(device)
-    n_devices = len(devices)
-    size = 4096 if on_card else 512
-    mib = 512 if on_card else 32
+    n_devices = len(_visible_devices(device))
+    size, mib, allreduce_mib = probe_sizes(device)
     family = family_of(device)
     labels = {}
 
@@ -631,23 +542,7 @@ def health_labels(prefix="google.com/tpu.health.", extended=False,
             labels[prefix + "allreduce-gbps"] = fmt(timed_probe(
                 "allreduce-gbps", lambda: launch.spawn_ranks(
                     _allreduce_rank, n_devices, device.type,
-                    args=(device.type, 64 if on_card else 8))))
-            try:
-                _, axes = _coords_grid(devices)
-            except Exception as e:  # noqa: BLE001 — hostile coords must
-                # not flip ok=false on cards the core probes measured.
-                sys.stderr.write(f"ici sweep mesh skipped: {e}\n")
-                axes = None
-            for ax in axes or ():
-                try:
-                    labels[prefix + f"ici-{ax}-gbps"] = fmt(timed_probe(
-                        f"ici-{ax}-gbps", lambda ax=ax: launch.spawn_ranks(
-                            _ici_axis_rank, n_devices, device.type,
-                            args=(devices, device.type, ax,
-                                  64 if on_card else 4))))
-                except Exception as e:  # noqa: BLE001 — a localisation
-                    # diagnostic: one axis failing hides no other.
-                    sys.stderr.write(f"ici sweep axis {ax} skipped: {e}\n")
+                    args=(device.type, allreduce_mib))))
         labels[prefix + "ok"] = "true"
     except Exception as e:  # noqa: BLE001 — any device failure: unhealthy
         sys.stderr.write(f"health probe failed: {e!r}\n")

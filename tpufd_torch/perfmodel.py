@@ -209,9 +209,7 @@ def measure(excluded=None, device=None):
     excluded = excluded_chip_ids() if excluded is None else excluded
     usable = measurement_devices(devices, excluded)
     device = usable[0]
-    on_card = device.type == "cuda"
-    size = 4096 if on_card else 512
-    mib = 512 if on_card else 32
+    size, mib, allreduce_mib = health.probe_sizes(device)
     out = {
         "matmul-tflops": health.median_probe(
             lambda: health.matmul_tflops(device=device, size=size)),
@@ -223,7 +221,7 @@ def measure(excluded=None, device=None):
         try:
             out["ici-gbps"] = launch.spawn_ranks(
                 health._allreduce_rank, len(usable), device.type,
-                args=(device.type, 64 if on_card else 8),
+                args=(device.type, allreduce_mib),
                 cards=[d.index for d in usable])
         except Exception as e:  # noqa: BLE001 — optional context; it must
             # not fail the matmul/HBM characterization it rides along with.
