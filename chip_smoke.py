@@ -26,14 +26,23 @@ phase catches an exception:
      boundary and every finite bf16 bit pattern; its C entry point with
      acc inside a sentinel-filled buffer; its time beside its byte bound,
      its plain version and the three eager passes it replaced, which it
-     must beat. Then the matmul probe read again;
+     must beat. The fused chain step (the product with the tail in its
+     epilogue): every element the chain tail of cuBLAS's product p or of
+     p one bf16 ulp away, at the probe's size and at sizes that are
+     multiples of 8 but not of its tiles; 8 steps on the benchmark
+     check's input (seeds 1-3) within CHAIN_GAP_SOUND of the plain chain;
+     out inside a sentinel-filled buffer, untouched around it; its time
+     beside its operation bound, the plain version and x @ x +
+     chain_tail, which it must beat. Then the matmul probe read again;
   4. the slice: health_labels(extended=True) on cuda:0, with every kernel
      launch count set to 0 just before and read just after (no DMA launch
-     unaligned: the probe's launches all take the vector path), and the
+     unaligned: the probe's launches all take the vector path; one fused
+     chain-step launch for every chain step the probes ran, and no
+     chain-tail launch), and the
      `dma-copy-gbps` label no higher than `copy_`'s rate beyond
      COPY_NOISE; then each probe's device, wall and enqueue time per
-     iteration, and one chain step split into its product, the three-pass
-     tail and the fused tail;
+     iteration, and one chain step: fused, and split as it ran before
+     into its product, the three-pass tail and the fused tail;
   5. perfmodel's output lines, in the grammar the daemon parses;
   6. the burn-in forward at entry() width, bf16 on the card against the
      port's float32 forward on the host; the train step: run_burnin and
@@ -147,7 +156,8 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.debug import CommDebugMode
 
-from tpufd_torch import _build, agg, burnin, chain_tail, dma_copy
+from portbench.checks import matmul_chain
+from tpufd_torch import _build, agg, burnin, chain_step, chain_tail, dma_copy
 from tpufd_torch import graft_entry, health, healthsm, journal, launch, mesh
 from tpufd_torch import metrics, perfmodel, placement, plugin, remedy, sched
 from tpufd_torch import sink, trace
@@ -176,8 +186,15 @@ CHAIN_SHAPE = (4096, 4096)  # the matmul probe's array on the card
 # few updates of zero is mostly update, whose gradient bf16 rounds).
 TRAIN_LOSS_RTOL, TRAIN_PARAM_RTOL, TRAIN_UPDATE_SHARE = 2e-2, 8e-3, 0.5
 # The data sheet's float32 rate outside the tensor cores (FLOP/s), for the
-# chain tail's operation bound.
+# chain tail's operation bound; its dense bf16 rate, for the chain step's.
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# Sizes at which the fused chain step is checked against cuBLAS + the
+# chain tail: the probe's, and multiples of 8 that are not of its tiles.
+CHAIN_STEP_SIZES = (4096, 1000, 8, 136, 4104)
+# The check's chain input (portbench/checks/matmul_chain.py): seeds 1-3 of
+# 8 steps, each within this gap of the plain chain (sound 0.0046-0.0149).
+CHAIN_GAP_SOUND = 0.02
 # The sharded burn-in loss against the one-card loss at the same shape:
 # both bf16 on the card, the sharded one summing partial products in
 # another order.
@@ -445,13 +462,17 @@ def phase_kernel(family):
             "shape": list(PROBE_SHAPE), "ratio_2n_n": ratio}
 
 
+def ordered_bits(t):
+    """bf16 bit patterns as ordered integers: neighbours differ by 1, and
+    -0 == +0."""
+    b = t.reshape(-1).view(torch.int16).int()
+    return torch.where(b < 0, -(b + 32768), b)
+
+
 def ulp_distance(got, want):
     """Elementwise distance in bf16 ulps between two bf16 tensors of
-    finite values: their bit patterns as ordered integers (-0 == +0)."""
-    def ordered(t):
-        b = t.reshape(-1).view(torch.int16).int()
-        return torch.where(b < 0, -(b + 32768), b)
-    return (ordered(got) - ordered(want)).abs()
+    finite values."""
+    return (ordered_bits(got) - ordered_bits(want)).abs()
 
 
 def at_offset(values, offset):
@@ -572,6 +593,109 @@ def phase_chain_tail(family):
             "three_pass_ms": three_ms, "ulps_differ": differ}
 
 
+def bf16_neighbours(t):
+    """The bf16 values one ulp below and above each element of t."""
+    o = ordered_bits(t)
+    return [torch.where(k < 0, -k - 32768, k).to(torch.int16).view(
+        torch.bfloat16).reshape(t.shape) for k in (o - 1, o + 1)]
+
+
+def check_chain_step(x):
+    """One fused step of x against cuBLAS's product and the chain-tail
+    kernel on the same input. Only the product's summation order may
+    differ, so every element must equal the tail of p, or of p one bf16
+    ulp away. Returns (elements that differ from the tail of p, max abs
+    difference)."""
+    out = torch.full_like(x, float("nan"))
+    chain_step.chain_step(x, out)
+    p = x @ x
+    want = chain_tail.chain_tail(p, x.clone())
+    near = [chain_tail.chain_tail(q, x.clone()) for q in bf16_neighbours(p)]
+    torch.cuda.synchronize()
+    got = ordered_bits(out)
+    exact = got == ordered_bits(want)
+    within = exact | (got == ordered_bits(near[0])) | (
+        got == ordered_bits(near[1]))
+    require(bool(within.all()),
+            f"chain_step differs from cuBLAS + chain_tail beyond one ulp of "
+            f"p in {int((~within).sum())} elements at {tuple(x.shape)}")
+    return int((~exact).sum()), float((out.float() - want.float()).abs().max())
+
+
+def chain_step_canary(size, gen, pad=4096):
+    """The fused step with out inside a buffer of SENTINEL, `pad` elements
+    on each side: out equals the wrapper's result, nothing around it
+    changed."""
+    x = chain_step_input(size, gen)
+    want = chain_step.chain_step(x, torch.empty_like(x))
+    buf = torch.full((pad + size * size + pad,), SENTINEL, dtype=torch.int16,
+                     device=DEVICE)
+    region = buf[pad:pad + size * size].view(torch.bfloat16).view(size, size)
+    chain_step.chain_step(x, region)
+    torch.cuda.synchronize()
+    require(torch.equal(region.view(torch.int16), want.view(torch.int16)),
+            f"chain_step into a padded buffer differs at {size}")
+    require(bool((buf[:pad] == SENTINEL).all())
+            and bool((buf[pad + size * size:] == SENTINEL).all()),
+            f"chain_step wrote outside out at {size}")
+
+
+def chain_step_input(size, gen):
+    """A bf16 matrix whose product lands on tanh's curved range."""
+    return (torch.randn((size, size), generator=gen, device=DEVICE)
+            * (1.5 / size ** 0.5)).to(torch.bfloat16)
+
+
+def parent_step(x, p, out):
+    """A chain step as the port ran it before the fused kernel: cuBLAS's
+    product into p, then the chain-tail kernel in place."""
+    torch.matmul(x, x, out=p)
+    chain_tail.chain_tail(p, out)
+
+
+def phase_chain_step():
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    differ, max_err = 0, 0.0
+    for size in CHAIN_STEP_SIZES:
+        n, err = check_chain_step(chain_step_input(size, gen))
+        differ, max_err = differ + n, max(max_err, err)
+    gaps = [matmul_chain.run({"size": CHAIN_SHAPE[0], "steps": 8}, seed,
+                             DEVICE, health._matmul_chain)["chain_gap"]
+            for seed in (1, 2, 3)]
+    require(max(gaps) <= CHAIN_GAP_SOUND,
+            f"8 fused steps on the check's input: chain_gap {gaps}")
+    for size in (1000, 136):
+        chain_step_canary(size, gen)
+    print(f"[3 kernel] chain_step within one bf16 ulp of p of cuBLAS + "
+          f"chain_tail at sizes {CHAIN_STEP_SIZES}: {differ} elements "
+          f"differ, max abs difference {max_err:.3g}; chain_gap of 8 steps "
+          f"on the check's input (seeds 1-3) "
+          + ", ".join(f"{g:.4f}" for g in gaps)
+          + "; out untouched around it at 1000 and 136")
+
+    x = chain_step_input(CHAIN_SHAPE[0], gen)
+    out, p = torch.empty_like(x), torch.empty_like(x)
+    ms = cuda_ms(lambda: chain_step.chain_step(x, out), reps=50)
+    parent_ms = cuda_ms(lambda: parent_step(x, p, out), reps=50)
+    plain_ms = cuda_ms(lambda: chain_step.chain_step_plain(x, out), reps=20)
+    bound_ms = 2 * CHAIN_SHAPE[0] ** 3 / BF16_FLOPS * 1e3
+    print(f"[3 kernel] chain_step per step at {CHAIN_SHAPE} bf16: kernel "
+          f"{ms:.4f} ms ({2 * CHAIN_SHAPE[0] ** 3 / ms / 1e9:.1f} TFLOP/s), "
+          f"bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of it), x @ x + "
+          f"chain_tail {parent_ms:.4f} ms ({ms / parent_ms - 1:+.1%}), plain "
+          f"{plain_ms:.4f} ms")
+    require(ms < parent_ms,
+            f"fused step {ms:.4f} ms is not faster than x @ x + chain_tail "
+            f"{parent_ms:.4f} ms")
+    return {"name": "chain_step", "route": "cuda",
+            "source": "tpufd_torch/csrc/chain_step.cu",
+            "replaces": "tpufd/health.py:188", "launches": None,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "library_ms": None, "per": "step", "shape": list(CHAIN_SHAPE),
+            "parent_ms": parent_ms, "ulps_differ": differ}
+
+
 def phase_matmul_read(phase, when):
     """The matmul probe as health_labels runs it (median of 3)."""
     t0 = time.perf_counter()
@@ -582,9 +706,9 @@ def phase_matmul_read(phase, when):
 
 
 def chain_step_split():
-    """Device ms of one chain step at the probe's shape and input, split
-    into its product, the three eager passes and the fused tail, and of
-    a 64-step chain with either tail."""
+    """Device ms of one chain step at the probe's shape and input: the
+    fused step, and split as it ran before it into the product, the three
+    eager passes and the fused tail; and of a 64-step chain each way."""
     acc = torch.full(CHAIN_SHAPE, 0.001 * 0.25, dtype=torch.bfloat16,
                      device=DEVICE)
     p = acc @ acc
@@ -592,21 +716,30 @@ def chain_step_split():
     three = cuda_ms(lambda: torch.tanh(p).add_(acc).mul_(0.5), reps=50)
     work = acc.clone()  # the fused tail runs in place on it
     fused = cuda_ms(lambda: chain_tail.chain_tail(p, work), reps=50)
+    step = cuda_ms(lambda: chain_step.chain_step(acc, work), reps=50)
 
     def three_pass_chain(x, n):
         for _ in range(n):
             x = torch.tanh(x @ x).add_(x).mul_(0.5)
         return x
 
+    def tail_chain(x, n):
+        for _ in range(n):
+            chain_tail.chain_tail(x @ x, x)
+        return x
+
     steps = 64
     chain_three = cuda_ms(lambda: three_pass_chain(acc.clone(), steps),
                           reps=3) / steps
-    chain_fused = cuda_ms(
+    chain_tail_ms = cuda_ms(lambda: tail_chain(acc.clone(), steps),
+                            reps=3) / steps
+    chain_step_ms = cuda_ms(
         lambda: health._matmul_chain(acc.clone(), steps), reps=3) / steps
-    print(f"    chain step at {CHAIN_SHAPE} bf16: GEMM {gemm:.4f} ms, "
-          f"three-pass tail {three:.4f} ms, fused tail {fused:.4f} ms; "
-          f"{steps}-step chain {chain_three:.4f} ms/step with the three "
-          f"passes, {chain_fused:.4f} ms/step fused")
+    print(f"    chain step at {CHAIN_SHAPE} bf16: fused step {step:.4f} ms; "
+          f"before it GEMM {gemm:.4f} ms, three-pass tail {three:.4f} ms, "
+          f"fused tail {fused:.4f} ms; {steps}-step chain {chain_three:.4f} "
+          f"ms/step with the three passes, {chain_tail_ms:.4f} with GEMM + "
+          f"fused tail, {chain_step_ms:.4f} with the fused step")
 
 
 def probe_iteration_times(name, fn, n):
@@ -632,15 +765,36 @@ def probe_iteration_times(name, fn, n):
           f"{enqueue * 1e3 / n:.4f} ms/iter (n {n})")
 
 
+@contextlib.contextmanager
+def counted_chain_steps():
+    """Yields a one-element list that sums the n of every
+    health._matmul_chain call made inside."""
+    real = health._matmul_chain
+    steps = [0]
+
+    def counting(x, n):
+        steps[0] += n
+        return real(x, n)
+
+    health._matmul_chain = counting
+    try:
+        yield steps
+    finally:
+        health._matmul_chain = real
+
+
 def phase_slice(family, copy_gbps):
     dma_copy.launches = 0
     dma_copy.unaligned_launches = 0
     chain_tail.launches = 0
+    chain_step.launches = 0
     t0 = time.perf_counter()
-    labels = health.health_labels(extended=True, device=DEVICE)
+    with counted_chain_steps() as steps:
+        labels = health.health_labels(extended=True, device=DEVICE)
     seconds = time.perf_counter() - t0
     launches = {"dma_copy": dma_copy.launches,
-                "chain_tail": chain_tail.launches}
+                "chain_tail": chain_tail.launches,
+                "chain_step": chain_step.launches}
     require(dma_copy.unaligned_launches == 0,
             f"{dma_copy.unaligned_launches} of the DMA probe's "
             f"{dma_copy.launches} launches took the element-by-element path")
@@ -653,8 +807,14 @@ def phase_slice(family, copy_gbps):
             for suffix in ("-rated", "-pct-of-rated"):
                 require(PREFIX + leaf + suffix in labels,
                         f"{leaf}{suffix} missing for a {family} card")
-    for name, count in launches.items():
-        require(count > 0, f"{name} kernel never launched on the main path")
+    require(launches["dma_copy"] > 0,
+            "dma_copy kernel never launched on the main path")
+    require(launches["chain_step"] == steps[0] > 0,
+            f"{launches['chain_step']} chain_step launches for {steps[0]} "
+            f"chain steps run")
+    require(launches["chain_tail"] == 0,
+            f"{launches['chain_tail']} chain_tail launches on the main path: "
+            f"the probe's steps left the fused kernel")
     dma_gbps = float(labels[PREFIX + "dma-copy-gbps"])
     require(dma_gbps <= copy_gbps * COPY_NOISE,
             f"dma-copy-gbps={dma_gbps} beats copy_'s {copy_gbps:.0f} GB/s by "
@@ -667,8 +827,8 @@ def phase_slice(family, copy_gbps):
         for leaf in ("matmul-tflops", "hbm-gbps", "dma-copy-gbps")}
     print(f"[4 slice] health_labels(extended=True) on {DEVICE} in "
           f"{seconds:.1f} s (per probe, median of 3 included: "
-          f"{probe_seconds} s), kernel launches {launches}, dma_copy "
-          f"unaligned 0")
+          f"{probe_seconds} s), kernel launches {launches} for "
+          f"{steps[0]} chain steps, dma_copy unaligned 0")
     for key in sorted(labels):
         print(f"    {key}={labels[key]}")
     probe_iteration_times("matmul-tflops",
@@ -1106,11 +1266,13 @@ import torch
 torch.ones(1, device="cuda").add_(1)
 torch.cuda.synchronize()
 marks["cuda"] = time.time()
-from tpufd_torch import chain_tail, dma_copy
+from tpufd_torch import chain_step, chain_tail, dma_copy
+chain_step._kernel()
 chain_tail._kernel()
 dma_copy._kernel()
 marks["loaded"] = time.time()
-x = torch.zeros((2, 8), dtype=torch.bfloat16, device="cuda")
+x = torch.zeros((8, 8), dtype=torch.bfloat16, device="cuda")
+chain_step.chain_step(x, x.clone())
 chain_tail.chain_tail(x, x.clone())
 dma_copy.dma_copy(x, 1, 1)
 torch.cuda.synchronize()
@@ -1959,7 +2121,8 @@ def main():
     family = phase_card()
     phase_build()
     phase_matmul_read(2, "first in the process")
-    kernels = [phase_kernel(family), phase_chain_tail(family)]
+    kernels = [phase_kernel(family), phase_chain_tail(family),
+               phase_chain_step()]
     phase_matmul_read(3, "after the kernel checks")
     moved = 2 * PROBE_SHAPE[0] * PROBE_SHAPE[1] * 2  # bf16, read + write
     launches, slice_labels, slice_seconds = phase_slice(

@@ -32,7 +32,7 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE.parent / "build" / "torch_kernels"
 KERNEL_DIR_ENV = "TPUFD_TORCH_KERNEL_DIR"
 BUILD_AHEAD = "python -m tpufd_torch._build"
-KERNELS = ("dma_copy", "chain_tail")
+KERNELS = ("dma_copy", "chain_tail", "chain_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

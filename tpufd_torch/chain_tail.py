@@ -3,7 +3,10 @@
 ``chain_tail`` launches the CUDA kernel in ``csrc/chain_tail.cu`` (the
 counterpart of XLA's fusion of the chain body in
 ``tpufd/health.py::_matmul_chain``) for CUDA bf16 tensors, and runs the
-plain PyTorch version ``chain_tail_plain`` for CPU tensors. It never
+plain PyTorch version ``chain_tail_plain`` for CPU tensors. The chain
+takes it for every matrix that the fused step of
+``tpufd_torch.chain_step`` does not take: every CPU matrix, and CUDA
+ones of another dtype, shape or alignment. It never
 falls back from the kernel to the plain version. Both write into ``acc``
 and return it. ``launches`` counts kernel launches, so a run can show
 that its path went through the kernel.

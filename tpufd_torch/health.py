@@ -4,8 +4,10 @@ The daemon's --device-health=full mode execs ``python3 -m tpufd_torch
 health`` and merges the label lines this module renders; --perf-exec
 runs the same probes through ``tpufd_torch.perfmodel``. Three probes:
 
-  - the bf16 matmul chain (``_matmul_chain``), TFLOP/s, whose elementwise
-    tail runs the hand-written CUDA kernel of ``tpufd_torch.chain_tail``;
+  - the bf16 matmul chain (``_matmul_chain``), TFLOP/s, each of whose
+    steps on a card runs the hand-written CUDA kernel of
+    ``tpufd_torch.chain_step``, the product with the elementwise tail in
+    its epilogue;
   - the HBM sign-flip stream (``_stream``), GB/s read+write;
   - with ``extended=True``, the DMA-copy probe (``dma_copy_gbps``), which
     runs the hand-written CUDA copy kernel of ``tpufd_torch.dma_copy``.
@@ -47,6 +49,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
+from tpufd_torch import chain_step as chain_step_lib
 from tpufd_torch import chain_tail as chain_tail_lib
 from tpufd_torch import dma_copy as dma_copy_lib
 from tpufd_torch import launch
@@ -323,14 +326,29 @@ def probe_sizes(device):
 
 def _matmul_chain(x, n):
     """n steps of acc <- tanh(acc @ acc) * 0.5 + acc * 0.5 (the reference's
-    _matmul_chain), in place on x, which it returns. Each step is one
-    product and one fused elementwise pass (chain_tail: the CUDA kernel
-    on the card, its plain version on the CPU), as XLA fuses the
-    reference's tail. The tail is computed in float32 and rounded once;
+    _matmul_chain), in place on x, which it returns. The tail is computed
+    in float32 from the product rounded to x's dtype and rounded once;
     halving is exact away from underflow, so (tanh(p) + acc) * 0.5 is the
-    reference's form."""
+    reference's form.
+
+    An x that chain_step takes (a CUDA bf16 square matrix of a size that
+    is a multiple of 8: every card caller) runs each step as one kernel,
+    the product with the tail in its epilogue, as XLA fuses the
+    reference's body. A step cannot write the matrix it reads, so the
+    steps alternate between x and a second buffer, and an odd n ends
+    with one copy back into x. Any other x runs each step as one product
+    and one fused elementwise pass (chain_tail: the CUDA kernel on the
+    card, its plain version on the CPU), in place."""
+    if not chain_step_lib.takes_fused_step(x):
+        for _ in range(n):
+            chain_tail_lib.chain_tail(x @ x, x)
+        return x
+    src, dst = x, torch.empty_like(x)
     for _ in range(n):
-        chain_tail_lib.chain_tail(x @ x, x)
+        chain_step_lib.chain_step(src, dst)
+        src, dst = dst, src
+    if src is not x:
+        x.copy_(src)
     return x
 
 
