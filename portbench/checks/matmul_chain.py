@@ -1,7 +1,8 @@
-"""The matmul probe's output check: the chain body the readings run
-(GEMM, then the chain-tail kernel), driven once at the cell's size for
-the first run's number of steps on a seeded bf16 input, against the
-plain chain in bf16.
+"""The matmul probe's output check: the chain body the readings run (on
+the card, one launch of the fused chain-step kernel a step, the product
+with the tail in its epilogue; on the CPU, a product and the plain chain
+tail), driven once at the cell's size for the first run's number of
+steps on a seeded bf16 input, against the plain chain in bf16.
 
 The input is diag(d) + E: d uniform in [-2, 2], E dense N(0, (0.1 /
 sqrt(size))^2). Each diagonal element starts where tanh is saturated
@@ -17,7 +18,7 @@ The number compared is the widest gap over the reference's largest
 magnitude (`chain_gap`). The control is the plain chain with each state
 and product stored in float8_e4m3fn, the precision below bf16, scaled by
 its largest magnitude, so it keeps the chain's range. FAULTS plants the
-faults the check has to catch in the program's chain tail."""
+faults the check has to catch in the program's chain step and tail."""
 
 import contextlib
 import math
@@ -58,18 +59,25 @@ def control(spec, seed, device):
 
 @contextlib.contextmanager
 def _tail_without_tanh():
-    """The chain tail computing 0.5 * (p + acc): the bend left out."""
-    from tpufd_torch import chain_tail
+    """The chain step computing 0.5 * (p + acc), the bend left out, where
+    each path computes it: in place of the fused chain step (the card's,
+    out = bf16(0.5 * (bf16(x @ x) + x))) and of the chain tail (any
+    other x: the CPU's)."""
+    from tpufd_torch import chain_step, chain_tail
+
+    def step(x, out):
+        p = (x @ x).float()
+        return out.copy_((p + x.float()) * 0.5)
 
     def tail(p, acc):
         return acc.copy_((p.float() + acc.float()) * 0.5)
 
-    saved = chain_tail.chain_tail
-    chain_tail.chain_tail = tail
+    saved = chain_step.chain_step, chain_tail.chain_tail
+    chain_step.chain_step, chain_tail.chain_tail = step, tail
     try:
         yield
     finally:
-        chain_tail.chain_tail = saved
+        chain_step.chain_step, chain_tail.chain_tail = saved
 
 
 FAULTS = {"tail_without_tanh": _tail_without_tanh}

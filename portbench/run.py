@@ -1,10 +1,12 @@
-"""The port's benchmark: one run of one cell on one card.
+"""The port's benchmark: one run of one cell on the cards it asks for.
 
     python3 portbench/run.py --workload health.matmul --seed 7 \
         --seconds 45 --trace 0
 
 From the root of a checkout. The cell's window is one closed-loop reader
-of the probe entry its workload file names (`portbench/harness.py`).
+of the probe entry its workload file names (`portbench/harness.py`). A
+cell of k > 1 chips runs over k ranks of one NCCL group, one process per
+card: this process is rank 0 on cuda:0 and starts the others.
 With `--trace 0` the last line of standard output holds the cell's
 end-to-end metrics, with `--trace 1` its per-layer metrics, read from
 torch.profiler over the window. Every run checks the program's output
@@ -20,8 +22,11 @@ build/portbench/ in the checkout, so only a checkout's first run builds.
 
 It exits non-zero and prints no result without a CUDA card (or with
 fewer cards than the cell asks for), when the card has no peaks in
-portbench/peaks.json, and when the process holds a module of JAX or of
-the JAX package once the window has closed.
+portbench/peaks.json, when the process (or, over several ranks, any
+rank's) holds a module of JAX or of the JAX package once the window has
+closed, and when a rank raises outside a reading, dies or stalls (4,
+naming the rank on stderr, within harness.PAST_WINDOW_S of the window's
+close).
 """
 
 import argparse
@@ -99,10 +104,14 @@ def main(argv=None):
            f"{args.trace}")
     out.mkdir(parents=True, exist_ok=True)
     libraries = _listing(Path(os.environ["TPUFD_TORCH_KERNEL_DIR"]))
-    result, readings, summary = harness.run_cell(
-        args.workload, args.seed, args.seconds, bool(args.trace),
-        torch.device("cuda", 0), process_start=STARTED,
-        beside=lambda: _smi(out / "smi.csv"))
+    try:
+        result, readings, summary = harness.run_cell(
+            args.workload, args.seed, args.seconds, bool(args.trace),
+            torch.device("cuda", 0), process_start=STARTED,
+            beside=lambda: _smi(out / "smi.csv"))
+    except harness.RankFault as e:
+        sys.stderr.write(f"portbench: {e}\n")
+        return harness.RANK_FAULT_EXIT
     result["device"]["power_limit_w"] = _power_limit(out / "smi.csv")
     # A checkout's first run builds the kernel libraries in its set-up;
     # the build is recorded apart from the runs that find them built.

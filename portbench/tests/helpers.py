@@ -26,10 +26,11 @@ def small(name):
     def shrink(d):
         return {k: SMALL_SIZES.get(k, v) for k, v in d.items()}
 
+    warm = workload["warm"]
     return {
         "kwargs": shrink(workload["kwargs"]),
-        "warm": dict(workload["warm"],
-                     kwargs=shrink(workload["warm"]["kwargs"])),
+        "warm": warm if warm == "entry" else dict(
+            warm, kwargs=shrink(warm["kwargs"])),
         "check": shrink(workload["check"]),
         "label": dict(workload["label"], limits=dict(
             workload["label"]["limits"], timer_gap=math.inf)),

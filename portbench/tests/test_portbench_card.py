@@ -1,5 +1,8 @@
 """On the card: each cell's run ends correct; the control and the planted
-faults fail its check at the cell's own size. Skips without a card."""
+faults fail its check at the cell's own size; the fused chain step's
+roofline lies between the step's share of the peak and 100; the path over
+several ranks, forced at one through a one-rank NCCL group, reads as the
+plain path does. Skips without a card."""
 
 import json
 import subprocess
@@ -59,3 +62,24 @@ def test_a_label_fault_fails_a_run_on_the_card(card, cell, fault):
     assert {"halved_time": "timer_gap",
             "halved_work": "label_recompute_gap"}[fault] in failed
     assert not result["correct"]
+
+
+@pytest.mark.card
+def test_the_chain_step_roofline_lies_between_the_step_share_and_100(card):
+    result, _, _ = harness.run_cell("health.matmul", 2**32 + 21, 3.0, True,
+                                    card)
+    assert result["correct"], result["checks"]
+    metrics = {k: m["value"] for k, m in result["metrics"].items()}
+    assert metrics["step_mfu_pct"] <= metrics["chain_step_roofline_pct"]
+    assert metrics["chain_step_roofline_pct"] <= 100
+
+
+@pytest.mark.card
+def test_a_one_rank_nccl_group_reads_as_the_plain_path(card):
+    reading_s = {}
+    for ranks in (None, 1):
+        result, _, _ = harness.run_cell("health.hbm", 2**32 + 23, 7.0, False,
+                                        card, ranks=ranks)
+        assert result["correct"], result["checks"]
+        reading_s[ranks] = result["metrics"]["reading_s"]["value"]
+    assert abs(reading_s[1] - reading_s[None]) <= 0.01 * reading_s[None]

@@ -98,23 +98,46 @@ def test_idle_share_and_device_time_per_reading():
     assert read("device_idle_pct", record(READINGS)) is None
 
 
+# Fused chain-step launches, ns, each started behind its predecessor and
+# overlapping it: [1000, 1600], [1500, 2200], [2300, 2900] in a window of
+# [1000, 3000]. Their union is 1800 ns; their spans sum to 1900.
+CHAIN = trace.summarize(
+    readings=[("portbench.reading", 1000, 2000),
+              ("portbench.reading", 2000, 3000)],
+    device_ops=[("(anonymous namespace)::chain_step_kernel(...)", 1000,
+                 1600, 0),
+                ("(anonymous namespace)::chain_step_kernel(...)", 1500,
+                 2200, 0),
+                ("(anonymous namespace)::chain_step_kernel(...)", 2300,
+                 2900, 0)],
+    host_ops=[], launchers={})
+
+
 def test_gemm_roofline_and_step_share_from_the_body_spans():
-    # One chain call of 4 steps on a 100 x 100 matrix: 2 * 100^3 * 4 =
-    # 8e6 operations, 8 ns at 1000 TFLOP/s, against 1400 ns under aten::mm
-    # and a 2000 ns window.
-    spans = {"tpufd_torch.health:_matmul_chain": [{"flops": 8_000_000}]}
-    rec = record(READINGS, SYNTH, spans)
-    assert read("gemm_roofline_pct", rec) == pytest.approx(100 * 8 / 1400)
+    # One chain call of 3 steps: 8e6 operations, 8 ns at 1000 TFLOP/s,
+    # against the launches' union of 1800 ns and a 2000 ns window.
+    spans = {"tpufd_torch.health:_matmul_chain": [{"flops": 8_000_000,
+                                                   "steps": 3}]}
+    rec = record(READINGS, CHAIN, spans)
+    assert read("chain_step_roofline_pct", rec) == pytest.approx(
+        100 * 8 / 1800)
     assert read("step_mfu_pct", rec) == pytest.approx(100 * 8 / 2000)
-    assert read("chain_tail_us", rec) == pytest.approx(0.1)
-    assert read("gemm_roofline_pct", record(READINGS, SYNTH)) is None
+    # Silent without the body's spans, without the kernel (cuBLAS's GEMM
+    # and the chain tail of SYNTH), and when the launches are not one a
+    # step.
+    assert read("chain_step_roofline_pct", record(READINGS, CHAIN)) is None
+    assert read("chain_step_roofline_pct", record(
+        READINGS, SYNTH, spans)) is None
+    spans["tpufd_torch.health:_matmul_chain"][0]["steps"] = 4
+    assert read("chain_step_roofline_pct", rec) is None
 
 
 def test_describers_count_operations_and_bytes():
     import torch
     x = torch.zeros(4, 4, dtype=torch.bfloat16)
-    gemm = harness.metric_module("gemm_roofline_pct")
-    assert gemm.SPANS[gemm.TARGET](x, 3) == {"flops": 2 * 4 * 4 * 4 * 3}
+    chain = harness.metric_module("chain_step_roofline_pct")
+    assert chain.SPANS[chain.TARGET](x, 3) == {"flops": 2 * 4 * 4 * 4 * 3,
+                                               "steps": 3}
     dma = harness.metric_module("dma_copy_roofline_pct")
     assert dma.SPANS[dma.TARGET](x, 5, 2) == {"bytes": 2 * 16 * 2 * 5}
 
@@ -131,6 +154,15 @@ def test_dma_roofline_needs_a_launch_per_call():
     spans["tpufd_torch.dma_copy:dma_copy"].append({"bytes": 1000})
     assert read("dma_copy_roofline_pct", record(
         READINGS, summary, spans)) is None
+
+
+@pytest.mark.parametrize("work,kwargs", [
+    ("matmul_tflops", {"size": 100}),
+    ("dma_copy_gbps", {"mib": 1, "chunks": 2}),
+    ("hbm_gbps", {"mib": 1})])
+def test_one_card_work_does_not_depend_on_the_ranks(work, kwargs):
+    work = harness.resolve(f"portbench.reference.labels:{work}")
+    assert work(kwargs, 4, ranks=4) == work(kwargs, 4) > 0
 
 
 LABEL = {"work": "portbench.reference.labels:matmul_tflops"}
