@@ -7,7 +7,9 @@ its own, found by the name ``BENCHMARK.json`` gives it:
   - ``portbench/workloads/<cell>.json``: the probe entry the window drives,
     its arguments, the peak its label is held to, the warm-up call, the
     program's timer and the label's work in the reference, and the output
-    check;
+    check; or, in place of the entry, the argv of the program's CLI that
+    each reading execs in a fresh process (``portbench/execs.py``), with
+    the labels it must publish and a list of output checks;
   - ``portbench/configs/<config>.json``: the deployment's sizes;
   - ``portbench/metrics/<metric>.py``: ``read(record)``, the metric's
     value from the run's record, or None when it finds nothing to read;
@@ -192,19 +194,20 @@ def closed_loop(read, seconds, mark, timer_calls, after=None):
 
 
 @contextlib.contextmanager
-def recording_timer(target, calls):
+def recording_timer(target, calls, tag=None):
     """Records into `calls` each call of the program's differential timer
     `target` ("module:attr", called as timer(fn, iters, ...), where
     fn(n, salt) runs n loop iterations): its iters; its runs, [n, the
     second the run's fn call began] each, seconds from the call's start;
-    its wall seconds; and the seconds it returned (None where it
-    raised)."""
+    its wall seconds; the seconds it returned (None where it raised);
+    and what `tag()`, where given, returns as the call begins."""
     module_name, _, attr = target.partition(":")
     module = importlib.import_module(module_name)
     original = getattr(module, attr)
 
     def timer(fn, iters, *args, **kwargs):
-        call = {"iters": iters, "runs": [], "wall_s": None, "seconds": None}
+        call = {"iters": iters, "runs": [], "wall_s": None, "seconds": None,
+                **(tag() if tag is not None else {})}
         calls.append(call)
         start = time.perf_counter()
 
@@ -260,8 +263,7 @@ def label_numbers(readings, label, kwargs, ranks=1):
         c = calls[0]
         expected = work(kwargs, c["iters"], ranks=ranks) / c["seconds"]
         recompute = max(recompute, abs(r["value"] - expected) / expected)
-        timer = max(timer, 1.0 - (c["seconds"] / c["iters"])
-                    / least_s_per_iteration(c), 0.0)
+        timer = max(timer, timer_gap(c))
     if recompute < 0:
         return {"label_recompute_gap": math.inf, "timer_gap": math.inf}
     return {"label_recompute_gap": recompute, "timer_gap": timer}
@@ -305,7 +307,7 @@ class _Spans:
         return False
 
 
-def _number(value, limit):
+def within(value, limit):
     """A compared number passes when it is finite and within its limit."""
     return {"value": value, "limit": limit,
             "ok": value is not None and math.isfinite(value)
@@ -317,6 +319,13 @@ def _worst(value, other):
     def finite_or_inf(v):
         return math.inf if v is None or v != v else v
     return max(finite_or_inf(value), finite_or_inf(other))
+
+
+def timer_gap(call):
+    """The share by which a timer call's seconds per iteration fall short
+    of the host clock's least over its runs of most iterations."""
+    return max(1.0 - (call["seconds"] / call["iters"])
+               / least_s_per_iteration(call), 0.0)
 
 
 def output_check(check_spec, seed, device):
@@ -586,7 +595,8 @@ def run_cell(name, seed, seconds, trace, device, overrides=None, peaks=None,
     metrics (cell_spec's form; the tests' cells of their own). A cell of
     k > 1 chips runs over k ranks of a process group, this process rank 0
     on `device` (`_RankGroup`); `ranks` forces a group of that many (the
-    tests force one of 1).
+    tests force one of 1). A workload that names an "exec" runs its
+    readings as fresh processes of the program's CLI (`execs.run`).
     Returns (the result line's object, the readings, the trace's summary
     or None)."""
     spec = spec or cell_spec(name)
@@ -596,6 +606,10 @@ def run_cell(name, seed, seconds, trace, device, overrides=None, peaks=None,
                          f"not {workload['reader']}")
     if peaks is None:
         peaks = card_peaks(torch.cuda.get_device_name(device))
+    if "exec" in workload:
+        from portbench import execs
+        return execs.run(spec, workload, seed, seconds, trace, device, peaks,
+                         process_start, beside)
     peak = peaks[workload["peak"]]
     per_layer = {m["name"]: metric_module(m["name"])
                  for m in spec["per_layer"]} if trace else {}
@@ -665,7 +679,7 @@ def _run(spec, workload, seed, seconds, trace, device, peaks, peak,
             numbers = {key: _worst(numbers.get(key), theirs.get(key))
                        for key in check_spec["limits"]}
             memory_peak = max(memory_peak, their_peak)
-    compared = {key: _number(numbers.get(key), limit)
+    compared = {key: within(numbers.get(key), limit)
                 for key, limit in check_spec["limits"].items()}
     labels = [r["value"] for r in readings if r["value"] is not None]
     failed = sum(r["error"] is not None for r in readings)
@@ -673,11 +687,11 @@ def _run(spec, workload, seed, seconds, trace, device, peaks, peak,
     for key, value in label_numbers(
             readings, label, kwargs,
             ranks=1 if group is None else group.world).items():
-        compared[key] = _number(value, label["limits"][key])
+        compared[key] = within(value, label["limits"][key])
     # Every label the window published, against the card's data sheet.
-    compared["label_over_peak"] = _number(
+    compared["label_over_peak"] = within(
         max(labels) / peak if labels else math.inf, 1.0)
-    compared["failed_readings"] = _number(float(failed), 0.0)
+    compared["failed_readings"] = within(float(failed), 0.0)
 
     record = {
         "workload": workload, "config": spec["config"], "peaks": peaks,
@@ -686,6 +700,18 @@ def _run(spec, workload, seed, seconds, trace, device, peaks, peak,
         "setup_s": (window_boot - process_start
                     if process_start is not None else None),
     }
+    result = result_line(spec, trace, record, per_layer, compared, device,
+                         memory_peak,
+                         None if group is None else group.world)
+    return result, readings, trace_summary
+
+
+def result_line(spec, trace, record, per_layer, compared, device,
+                memory_peak, count=None):
+    """The result line's object: the cell's end-to-end metrics (its
+    per-layer ones, read by `per_layer`'s modules, in a traced run) from
+    `record`, the device, and the `compared` numbers; `count` is the
+    number of cards the run used (None: those visible)."""
     wanted = spec["per_layer"] if trace else spec["end_to_end"]
     readers = per_layer if trace else {m["name"]: metric_module(m["name"])
                                        for m in wanted}
@@ -695,20 +721,23 @@ def _run(spec, workload, seed, seconds, trace, device, peaks, peak,
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
+    if count is None:
+        count = torch.cuda.device_count() if device.type == "cuda" else 1
     device_info = {
         "platform": "gpu" if device.type == "cuda" else device.type,
         "kind": (torch.cuda.get_device_name(device)
                  if device.type == "cuda" else "cpu"),
-        "count": (group.world if group is not None
-                  else torch.cuda.device_count() if device.type == "cuda"
-                  else 1),
+        "count": count,
         "memory_peak_bytes": memory_peak,
     }
+    readings = record["readings"]
     result = {
         "correct": all(c["ok"] for c in compared.values()),
-        "attempted": len(readings), "failed": failed,
+        "attempted": len(readings),
+        "failed": sum(r["error"] is not None for r in readings),
         "metrics": metrics, "device": device_info,
     }
+    trace_summary = record["trace"]
     if trace_summary is not None:
         device_info["busy_s"] = trace_summary["busy_s"]
         device_info["window_s"] = trace_summary["window_s"]
@@ -716,4 +745,4 @@ def _run(spec, workload, seed, seconds, trace, device, peaks, peak,
                                "idle_gaps": trace_summary["idle_gaps"]}
     result["checks"] = {key: {"value": c["value"], "limit": c["limit"]}
                         for key, c in compared.items()}
-    return result, readings, trace_summary
+    return result

@@ -4,7 +4,8 @@
         --seconds 45 --trace 0
 
 From the root of a checkout. The cell's window is one closed-loop reader
-of the probe entry its workload file names (`portbench/harness.py`). A
+of the probe entry its workload file names (`portbench/harness.py`), or
+of the program's CLI, one fresh process a reading (`portbench/execs.py`). A
 cell of k > 1 chips runs over k ranks of one NCCL group, one process per
 card: this process is rank 0 on cuda:0 and starts the others.
 With `--trace 0` the last line of standard output holds the cell's

@@ -26,12 +26,40 @@ def small(name):
     def shrink(d):
         return {k: SMALL_SIZES.get(k, v) for k, v in d.items()}
 
+    if "exec" in workload:
+        return small_exec(workload, shrink)
+
     warm = workload["warm"]
     return {
         "kwargs": shrink(workload["kwargs"]),
         "warm": warm if warm == "entry" else dict(
             warm, kwargs=shrink(warm["kwargs"])),
         "check": shrink(workload["check"]),
+        "label": dict(workload["label"], limits=dict(
+            workload["label"]["limits"], timer_gap=math.inf)),
+    }
+
+
+# The sizes the CLI's probes take on the CPU (tpufd_torch.health's
+# probe_sizes: matmul 512, stream 32 MiB, the DMA copy half of it).
+CPU_PROBES = {"size": 512, "mib": 32}
+
+
+def small_exec(workload, shrink):
+    """An exec cell's overrides: the exec on the CPU (--device cpu), its
+    labels worked out again at the CPU's probe sizes, the output checks
+    shrunk as the label cells' are, and the timer's limit lifted as
+    small() says."""
+    labels = {}
+    for name, label in workload["labels"].items():
+        kwargs = {k: CPU_PROBES.get(k, v) for k, v in label["kwargs"].items()}
+        if name == "dma-copy-gbps":
+            kwargs["mib"] //= 2
+        labels[name] = dict(label, kwargs=kwargs)
+    return {
+        "exec": workload["exec"] + ["--device", "cpu"],
+        "labels": labels,
+        "checks": [shrink(check) for check in workload["checks"]],
         "label": dict(workload["label"], limits=dict(
             workload["label"]["limits"], timer_gap=math.inf)),
     }

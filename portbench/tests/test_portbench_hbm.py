@@ -57,7 +57,7 @@ def test_the_cell_drives_the_deployments_stream_probe():
                                           workload["kwargs"]["iters"] + 1]
     assert harness.resolve(workload["check"]["body"]) is health._stream
     assert [m["name"] for m in spec["per_layer"]
-            if "workloads" in m] == ["stream_roofline_pct"]
+            if m["workloads"] == [CELL]] == ["stream_roofline_pct"]
 
 
 @pytest.mark.parametrize("trace_", [False, True])

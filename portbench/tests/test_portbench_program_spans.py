@@ -85,7 +85,8 @@ def test_the_manifest_has_the_four_entries_as_specified():
     for name, (better, source, moves) in NEW.items():
         assert entries[name] == {
             "name": name, "unit": "%", "better": better, "source": source,
-            "layer": "differential timer", "moves": moves}
+            "layer": "differential timer", "moves": moves,
+            "workloads": ["health.matmul", "extended.dma_copy", "health.hbm"]}
 
 
 def test_timer_useful_pct_is_label_over_run_iterations(canned):

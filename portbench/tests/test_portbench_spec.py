@@ -60,6 +60,10 @@ def test_cell_files_load_and_their_names_resolve(cell):
     workload, config = spec["workload"], spec["config"]
     assert workload["name"] == cell
     assert config["name"] == spec["cell"]["config"]
+    assert workload["reader"] == {"loop": "closed", "readers": 1}
+    if "exec" in workload:
+        assert_exec_files_resolve(workload, config)
+        return
     assert callable(harness.resolve(workload["entry"]))
     warm = workload["warm"]
     assert warm == "entry" or callable(harness.resolve(warm["factory"]))
@@ -73,7 +77,27 @@ def test_cell_files_load_and_their_names_resolve(cell):
     # The window drives the deployment's probe at the deployment's sizes.
     assert config["probes"][workload["probe"]] == workload["kwargs"]
     assert workload["peak"] in harness.card_peaks(config["card"])
-    assert workload["reader"] == {"loop": "closed", "readers": 1}
+
+
+def assert_exec_files_resolve(workload, config):
+    """An exec cell's files: the CLI's health command, the labels of the
+    deployment's probes at its sizes, each with its peak and work, and
+    every output check's module and body."""
+    assert workload["exec"][0] == "health"
+    assert callable(harness.resolve(workload["warm"]["build"]))
+    assert callable(harness.resolve(workload["label"]["timer"]))
+    assert set(workload["label"]["limits"]) == {"label_recompute_gap",
+                                                "timer_gap"}
+    assert set(workload["labels"]) == set(config["probes"])
+    for name, label in workload["labels"].items():
+        assert config["probes"][name] == label["kwargs"]
+        assert label["peak"] in harness.card_peaks(config["card"])
+        assert callable(harness.resolve(label["work"]))
+    assert config["exec_timeout_s"] > 0
+    for check in workload["checks"]:
+        checker = harness.check_module(check["module"])
+        assert callable(checker.run) and callable(checker.control)
+        assert callable(harness.resolve(check["body"]))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -125,6 +149,6 @@ def test_result_line_has_exactly_the_allowed_keys(cell, trace):
         assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
         assert {"busy_s", "window_s"} <= set(result["device"])
     else:
-        assert set(result["metrics"]) == {"setup_s", "reading_s",
-                                          "label_peak_pct"}
+        assert set(result["metrics"]) == {
+            m["name"] for m in harness.cell_spec(cell)["end_to_end"]}
     json.dumps(result)
