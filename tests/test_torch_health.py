@@ -1,6 +1,8 @@
 """The port's probes, timer, rated context, label set and probe
 scheduler, held against the JAX package on the CPU."""
 
+import math
+import statistics
 import time
 from fractions import Fraction
 
@@ -122,8 +124,8 @@ class FakeClock:
     """perf_counter stand-in: a probe call advances it by a fixed
     overhead plus `per_iter` seconds per loop iteration. It counts in
     exact fractions, so the lengths a timer ran before a step round
-    nothing: the port's timer skips lengths that tpufd's runs, and both
-    still read the same differences at the same n."""
+    nothing: the port's timer runs other lengths than tpufd's, and both
+    read exactly `per_iter` an iteration at any n."""
 
     def __init__(self, per_iter, overhead=0.5):
         self.now = Fraction(0)
@@ -156,18 +158,29 @@ def test_time_iters_matches_jax_timer(cpu_jax, monkeypatch, per_iter):
 
 # Per-iteration costs from 1e-6 to 2 s on a log grid: none lies within 6%
 # of a length whose median would equal settle_s, settle_s / 2 or 3/4 of
-# settle_s (0.02 s, 4 iters), so no case rests on a tie.
+# settle_s (0.02 s, 4 iters), nor within 0.05% of one whose median the
+# first step predicts at _AIM times settle_s under the cap, so no case
+# rests on a tie.
 PER_ITER_GRID = [float(p) for p in np.geomspace(1e-6, 2.0, 15)]
+
+
+def port_steps(recorder):
+    """(n, median difference) of each calibration step the port's timer
+    recorded."""
+    return [(s.attrs["n"], statistics.median(s.attrs["differences"]))
+            for s in recorder.spans if s.name == "timer.step"]
 
 
 @pytest.mark.parametrize("overhead", [0.5, 3e-3])
 @pytest.mark.parametrize("per_iter", PER_ITER_GRID)
 def test_time_iters_accepts_the_jax_timers_n(cpu_jax, monkeypatch,
                                              per_iter, overhead):
-    """With a cost linear in n the port's timer, which skips the lengths
-    its first step shows to fall short, accepts the n of tpufd's timer,
-    which tries them all (half its longest run), and returns the same
-    seconds; where tpufd's raises, the port's raises the same error."""
+    """With a cost linear in n the port's timer, which aims each length
+    from the cost per iteration of the step before, accepts a multiple of
+    iters no larger than the n of tpufd's timer, which tries every
+    iters * 4**k (half its longest run), whose median reaches settle_s
+    wherever tpufd's does; it returns the same seconds exactly, and where
+    tpufd's raises, the port's raises the same error."""
     from tpufd import health as ref
 
     outcomes, longest = [], []
@@ -188,11 +201,52 @@ def test_time_iters_accepts_the_jax_timers_n(cpu_jax, monkeypatch,
             outcomes.append(str(err))
         monkeypatch.undo()
         longest.append(max(ran))
-    steps = [s for s in recorder.spans if s.name == "timer.step"]
-    assert steps[-1].attrs["n"] == longest[0] // 2
+    n, median = port_steps(recorder)[-1]
+    assert n % 4 == 0 and n <= longest[0] // 2
+    if Fraction(per_iter) * (longest[0] // 2) >= 0.02:
+        assert median >= 0.02
     assert outcomes[1] == outcomes[0]
     if not isinstance(outcomes[0], str):
         assert outcomes[0] == pytest.approx(4 * per_iter)
+
+
+@pytest.mark.parametrize("per_iter", PER_ITER_GRID)
+def test_time_iters_aims_the_step_after_the_first(monkeypatch, per_iter):
+    """With a cost linear in n: a first step that reaches settle_s is the
+    only one; else the timer runs at most one pilot step, where the first
+    falls under _PILOT of settle_s and the pilot's length is short of the
+    cap, and the pilot reaches that share; the
+    step aimed at settle_s after them is the last, and its median lies in
+    [settle_s, _AIM * settle_s + iters * per_iter], or at the 2n floor
+    above the aim, unless the cap is shorter."""
+    iters, settle_s = 4, 0.02
+    recorder = spans.Recorder()
+    monkeypatch.setattr(spans, "_DEFAULT", recorder)
+    clock = FakeClock(per_iter)
+    monkeypatch.setattr(time, "perf_counter", clock)
+    try:
+        health._time_iters(clock.probe, iters, settle_s=settle_s)
+    except RuntimeError:
+        pass
+    steps = port_steps(recorder)
+    if steps[0][1] >= settle_s:
+        assert len(steps) == 1
+        return
+    jumped = [i for i, s in enumerate(recorder.spans)
+              if s.name == "timer.step" and s.attrs.get("jumped")]
+    aimed = len(steps) - 1
+    assert len(jumped) == 1 and aimed in (1, 2)
+    pilot = settle_s * health._PILOT
+    assert (steps[0][1] < pilot and steps[1][0] < iters * 1024) == (
+        aimed == 2)
+    if aimed == 2:
+        assert steps[1][1] >= pilot
+    n, median = steps[aimed]
+    assert n % iters == 0
+    if n < iters * 1024:
+        cost = Fraction(per_iter)
+        assert settle_s <= median <= max(
+            health._AIM * settle_s + iters * cost, 2 * steps[aimed - 1][1])
 
 
 def test_time_iters_raises_when_device_time_never_grows(monkeypatch):

@@ -46,9 +46,9 @@ def gather(t):
     return torch.stack(parts).float().numpy()
 
 
-def fixed_timer(fn, iters, settle_s=0.5, agree_on=None):
+def fixed_timer(fn, iters, settle_s=0.5, agree_on=None, key=None):
     """_time_iters stand-in: runs the probe body once, reports SECONDS."""
-    del settle_s, agree_on
+    del settle_s, agree_on, key
     health._fetch_scalar(fn(iters, 0.125))
     return SECONDS
 
@@ -401,13 +401,13 @@ def test_real_probes_over_gloo_are_finite_and_positive(four_ranks):
 
 
 def test_ranks_of_unequal_speed_skip_to_one_length(four_ranks):
-    """The timer's skip is judged on the agreed median: ranks whose body
-    costs 1e-4 to 4e-4 s an iteration all run lengths 4 then 64, the
-    slowest rank's jump (the fastest alone would go on at 256), with
-    their collective bodies in step, and all return the slowest rank's
-    seconds."""
+    """The timer's aim is judged on the agreed median: ranks whose body
+    costs 1e-4 to 4e-4 s an iteration all run lengths 4, 16 (a pilot)
+    and 60, the slowest rank's aims (the fastest alone would run its
+    pilot at 60, then 232), with their collective bodies in step, and all
+    return the slowest rank's seconds."""
     every = four_ranks["probes"]["unequal_ranks"]
-    assert [r["ladder"] for r in every] == [[4, 64]] * 4
+    assert [r["ladder"] for r in every] == [[4, 16, 60]] * 4
     assert all(r["matched"] for r in every)
     assert [r["seconds"] for r in every] == pytest.approx([4 * 4e-4] * 4)
 

@@ -148,39 +148,44 @@ def test_the_clock_offset_is_realtime_minus_perf_counter():
 # ---- the timer's spans -----------------------------------------------------
 
 # (per_iter, iters, settle_s, the n of each calibration step, the last the
-# accepted one, the lengths skipped after the first step, the first step's
-# cost per iteration where it differs, a peer's median over this rank's
-# where ranks agree). Each step runs 3 pairs of 2n and n; the warm-up,
-# 2 * iters. The timer skips the lengths the first step predicts below
-# 3/4 of settle_s: at 1e-3 s, 8 iters, rung 32 (0.032 s); rung 128 (0.128 s)
-# runs, falls short of 0.15 s and climbs.
+# accepted one, the index of the step aimed at settle_s, (n_max, the cost
+# per iteration of a run of at most n_max iterations) where it differs,
+# a peer's median over this rank's where ranks agree). Each step runs 3
+# pairs of 2n and n; the warm-up, 2 * iters. A step under 1/4 of
+# settle_s is followed by a pilot step, aimed at 1/4 of 1.15 times
+# settle_s, at least twice its length; a longer step, by the least
+# multiple of iters predicted at 1.15 times settle_s, but no further
+# than the least iters * 4**k predicted at settle_s: at 1e-3 s, 8 iters,
+# the pilot runs at 48 and the aimed step at 176 (0.176 s).
 LADDERS = [
-    (1e-3, 4, 0.02, [4, 16, 64], 0, None, None),
-    (1e-4, 4, 0.02, [4, 256], 2, None, None),
-    (2.0, 4, 0.02, [4], 0, None, None),
-    (1e-3, 8, 0.15, [8, 128, 512], 1, None, None),
-    # a first step twice as dear: the jump lands a rung short and climbs
-    # once, to the n a full ladder accepts ([8, 32, 128, 512, 2048])
-    (1.5e-4, 8, 0.15, [8, 512, 2048], 2, 3e-4, None),
-    # a first step twice as cheap: the jump lands a rung above a full
-    # ladder's 2048, and the seconds are still iters * per_iter
-    (1e-4, 8, 0.15, [8, 8192], 4, 5e-5, None),
-    # a first step with no cost to measure: no skip, the full ladder
-    (1e-4, 8, 0.15, [8, 32, 128, 512, 2048], 0, 0.0, None),
-    # a peer 4 times slower: the agreed median sets the jump ([8, 2048]
-    # alone)
-    (1e-4, 8, 0.15, [8, 512], 2, None, 4.0),
+    (1e-3, 4, 0.02, [4, 8, 24], 2, None, None),
+    (1e-4, 4, 0.02, [4, 60, 232], 2, None, None),
+    (2.0, 4, 0.02, [4], None, None, None),
+    (1e-3, 8, 0.15, [8, 48, 176], 2, None, None),
+    # a first step twice as dear: its pilot falls under 1/4 of settle_s
+    # and a second pilot follows, at least twice as long
+    (1.5e-4, 8, 0.15, [8, 144, 288, 1152], 3, (16, 3e-4), None),
+    # a first step twice as cheap: the pilot runs twice its aim, and the
+    # aimed step, aimed from the pilot's cost, lands on it
+    (1e-4, 8, 0.15, [8, 864, 1728], 2, (16, 5e-5), None),
+    # a first step with no cost to measure: a rung of 4, then the pilot
+    (1e-4, 8, 0.15, [8, 32, 432, 1728], 3, (16, 0.0), None),
+    # a peer 4 times slower: the agreed median sets every length
+    # ([8, 432, 1728] alone)
+    (1e-4, 8, 0.15, [8, 112, 432], 2, None, 4.0),
+    # a cost 1/1.2 as dear past the pilot's runs: the aimed step reads
+    # 0.96 of settle_s and climbs once, to the rung predicted at settle_s
+    (1e-4, 8, 0.15, [8, 360, 1440, 2048], 2, (720, 1.2e-4), None),
 ]
 
 
 @pytest.mark.parametrize(
-    "per_iter, iters, settle_s, ladder, skipped, first, peer", LADDERS,
+    "per_iter, iters, settle_s, ladder, aimed, first, peer", LADDERS,
     ids=[f"{c[0]}-{c[1]}-{c[2]}-ladder{i}" for i, c in enumerate(LADDERS)])
 def test_time_iters_records_its_ladder(recorder, monkeypatch, per_iter,
-                                       iters, settle_s, ladder, skipped,
+                                       iters, settle_s, ladder, aimed,
                                        first, peer):
-    clock = FakeClock(per_iter,
-                      first=None if first is None else (2 * iters, first))
+    clock = FakeClock(per_iter, first=first)
     monkeypatch.setattr(time, "perf_counter", clock)
     if peer is not None:
         monkeypatch.setattr(health, "_agree_max",
@@ -193,9 +198,9 @@ def test_time_iters_records_its_ladder(recorder, monkeypatch, per_iter,
     assert [s.attrs["n"] for s in steps] == ladder
     assert [s.attrs["accepted"] for s in steps] == [False] * (
         len(ladder) - 1) + [True]
-    assert timer.attrs["rungs_skipped"] == skipped
+    assert timer.attrs["settle_s"] == settle_s
     jumped = [i for i, s in enumerate(steps) if s.attrs.get("jumped")]
-    assert jumped == ([1] if skipped else [])
+    assert jumped == ([] if aimed is None else [aimed])
     want_runs = [2 * iters] + [m for n in ladder for m in (2 * n, n) * 3]
     assert [r.attrs["n"] for r in runs] == want_runs
     assert [r.attrs["role"] for r in runs] == ["warm"] + ["2n", "n"] * (
@@ -207,8 +212,8 @@ def test_time_iters_records_its_ladder(recorder, monkeypatch, per_iter,
                if s.start_ns <= r.start_ns <= s.end_ns)
     assert {s.parent for s in steps} == {timer.id}
     text = metrics.default_registry().render()
-    outcome = None if not skipped else (
-        "accepted" if len(ladder) == 2 else "climbed")
+    outcome = None if aimed is None else (
+        "accepted" if aimed == len(ladder) - 1 else "climbed")
     for name in health._JUMP_OUTCOMES:
         assert metrics.sample_value(
             text, "tpufd_timer_jumps_total",
@@ -216,17 +221,49 @@ def test_time_iters_records_its_ladder(recorder, monkeypatch, per_iter,
                 name == outcome)
 
 
+def test_the_same_work_aims_from_its_last_accepted_cost(recorder,
+                                                        monkeypatch):
+    """A call under a key that a call before accepted aims its second step
+    from that call's cost per iteration and runs no pilot; another key
+    runs its pilot. Where the cost fell since, 1/1.2 as dear, the aimed
+    step falls short and climbs, and the key keeps the newer cost."""
+    monkeypatch.setattr(health, "_accepted_cost", {})
+    ladders = []
+    for per_iter, key in ((1e-3, "a"), (1e-3, "a"), (1e-3, "b"),
+                          (1e-3 / 1.2, "a")):
+        clock = FakeClock(per_iter)
+        monkeypatch.setattr(time, "perf_counter", clock)
+        first = len(named(recorder, "timer.step"))
+        with recorder.span("probe", probe="matmul-tflops"):
+            seconds = health._time_iters(clock.probe, 8, settle_s=0.15,
+                                         key=key)
+        assert seconds == pytest.approx(8 * per_iter)
+        steps = named(recorder, "timer.step")[first:]
+        ladders.append([(s.attrs["n"], s.attrs.get("jumped", False))
+                        for s in steps])
+    assert ladders == [[(8, False), (48, False), (176, True)],
+                       [(8, False), (176, True)],
+                       [(8, False), (48, False), (176, True)],
+                       [(8, False), (176, True), (352, False)]]
+    assert health._accepted_cost == pytest.approx(
+        {"a": 1e-3 / 1.2, "b": 1e-3})
+    text = metrics.default_registry().render()
+    assert [metrics.sample_value(text, "tpufd_timer_jumps_total",
+                                 {"probe": "matmul-tflops", "outcome": name})
+            for name in health._JUMP_OUTCOMES] == [3, 1, 0]
+
+
 def test_step_differences_are_the_timers(recorder, monkeypatch):
     """Each step holds its three t(2n) - t(n) in the order run; the label
-    rests on the accepted step's median. The first step's 1e-3 s an
-    iteration sends the timer on to n = 256, whose runs take the times
-    below."""
+    rests on the accepted step's median. The first step's and the pilot's
+    1e-3 s an iteration send the timer on to n = 176, whose runs take the
+    times below."""
     clock = FakeClock(1e-3)
     times = iter([0.30, 0.10, 0.31, 0.10, 0.28, 0.10])
     real = clock.probe
 
     def probe(n, salt):  # the accepted step's runs take the times above
-        if n >= 64:
+        if n >= 128:
             clock.now += next(times)
             clock.salts.append(salt)
             return np.array([float(salt)])
@@ -235,9 +272,9 @@ def test_step_differences_are_the_timers(recorder, monkeypatch):
     monkeypatch.setattr(time, "perf_counter", clock)
     seconds = health._time_iters(probe, 4, settle_s=0.15)
     step = named(recorder, "timer.step")[-1]
-    assert step.attrs["n"] == 256 and step.attrs["accepted"]
+    assert step.attrs["n"] == 176 and step.attrs["accepted"]
     assert step.attrs["differences"] == pytest.approx([0.20, 0.21, 0.18])
-    assert seconds == pytest.approx(0.20 * 4 / 256)
+    assert seconds == pytest.approx(0.20 * 4 / 176)
 
 
 def test_an_unmeasurable_timer_closes_its_spans_with_the_error(
@@ -278,7 +315,6 @@ def test_a_jump_to_the_cap_that_stays_unmeasurable_raises(recorder,
     assert [s.attrs["n"] for s in steps] == [4, 4096]
     assert [s.attrs.get("jumped", False) for s in steps] == [False, True]
     assert not any(s.attrs["accepted"] for s in steps)
-    assert timer.attrs["rungs_skipped"] == 4
     text = metrics.default_registry().render()
     assert [metrics.sample_value(text, "tpufd_timer_jumps_total",
                                  {"probe": "hbm-gbps", "outcome": name})
@@ -308,8 +344,8 @@ def test_the_health_textfile_counts_the_spans_iterations(recorder,
     """`health --device cpu --metrics-out` writes a valid textfile whose
     tpufd_timer_iterations_total adds up, per probe and role, to the
     timer spans' counts, and whose tpufd_timer_jumps_total adds up, per
-    probe, to the timer spans that skipped lengths, those whose jumped
-    step was accepted apart."""
+    probe, to the timer calls that aimed a step at settle_s, those whose
+    aimed step was accepted apart."""
     out = tmp_path / "health.prom"
     assert cli.main(["health", "--device", "cpu", "--metrics-out",
                      str(out)]) == 0
@@ -333,7 +369,8 @@ def test_the_health_textfile_counts_the_spans_iterations(recorder,
             {"probe": leaf, "outcome": name})
             for name in health._JUMP_OUTCOMES}
         assert sum(jumps.values()) == sum(
-            t.attrs["rungs_skipped"] > 0 for t in timers)
+            s.attrs.get("jumped", False) for s in named(recorder, "timer.step")
+            if roots[s.request] == leaf)
         assert jumps["accepted"] == sum(
             s.attrs["accepted"] for s in named(recorder, "timer.step")
             if s.attrs.get("jumped") and roots[s.request] == leaf)

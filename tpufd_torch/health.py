@@ -20,10 +20,11 @@ so a CUDA node has no per-axis ring and the port publishes no
 ``ici-<axis>-gbps`` label.
 
 Timing is differential, as in the reference: t(2n) - t(n) over salted
-inputs, median of 3 pairs, loop length grown by 4 until the difference is
+inputs, median of 3 pairs, loop length grown until the difference is
 measurable, so launch latency, allocation and host round-trips cancel.
-Unlike the reference, the timer skips the lengths that its first step
-shows to fall short; the length the label rests on is the reference's.
+Unlike the reference, which grows the length by 4, the timer goes on at
+the length that a measured cost per iteration predicts just over the
+threshold, so a label rests on a difference just past it.
 PyTorch runs eagerly, so where the reference runs one executable with a
 traced n, a probe here enqueues n iterations from a Python loop. At the
 card sizes every iteration holds the device for far longer than its
@@ -33,13 +34,15 @@ Every probe reading is a ``probe`` span on ``tpufd_torch.spans``'
 recorder, and the timer records its calibration steps and runs under
 it (``_time_iters``); ``tpufd_timer_iterations_total`` counts the loop
 iterations it ran, those the label rests on apart, and
-``tpufd_timer_jumps_total`` the calls that skipped lengths.
+``tpufd_timer_jumps_total`` the calls that aimed a length at the
+threshold.
 
 Probes run on a CUDA card unless the caller passes device="cpu" (the
 tests do). With no card and no explicit CPU request they raise.
 """
 
 import itertools
+import math
 import os
 import statistics
 import sys
@@ -153,47 +156,95 @@ def _agree_max(value, device):
     return float(agreed)
 
 
-# After its first step the timer goes on at the first length whose median
-# the first step's cost per iteration predicts at this share of settle_s or
-# more. A length below it is skipped only where its median could reach
-# settle_s just if it exceeded the prediction by more than a third: on an
-# H100 a matmul chain step's run time differs by 13% at most across lengths.
-_JUMP_SHARE = 0.75
+# After a step that falls short of settle_s with a median m > 0 at n, the
+# timer goes on at the least multiple of iters whose median a cost per
+# iteration predicts at _AIM times settle_s, at least 2n, but never past
+# the least iters * 4**k predicted at settle_s (the length at which the
+# reference's ladder stops when the cost holds) nor past the cap. _AIM
+# covers how far a step's cost per iteration falls below the cost it was
+# aimed from: on an H100 by 12.8% at most where a first step of a few
+# milliseconds set it (459 calls of the three card probes); where an
+# accepted step or a pilot set it, no aimed step read under 1.12 times
+# settle_s (579 calls).
+_AIM = 1.15
+# The cost is the step's own, m / n, where m reaches this share of
+# settle_s. Below it a cost is not close enough to aim from: an H100's
+# matmul, at its power cap, runs a few milliseconds up to 4% off its
+# mean pace, and an aim that far off moves the card time of the reading.
+# There the timer aims from the cost per iteration of the last step it
+# accepted for the same work (``key``), or, with none, first runs a pilot
+# step aimed at this share of _AIM times settle_s: on an H100 a pilot of
+# that length read the matmul's cost within 1.3% (0.4% standard
+# deviation), one of 1/16 within 3.5% (1.2%).
+_PILOT = 1 / 4
+# seconds per iteration of the last accepted step, per key
+_accepted_cost = {}
 
 
-def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
+def _next_length(n, median, iters, settle_s, known=None):
+    """(the next length, whether it is aimed at settle_s) after a step
+    at `n` whose median difference `median` ended nothing: aimed from a
+    cost per iteration (see _AIM and _PILOT; `known`, the last accepted
+    cost of the same work, or None), four times `n` where the step
+    measured no cost; at most iters * 1024, the cap. The length is aimed
+    unless it is a pilot short of the cap or four times `n`."""
+    cap = iters * 1024
+    if median <= 0:
+        return min(4 * n, cap), False
+    coarse = median < _PILOT * settle_s
+    cost = known if coarse and known is not None else median / n
+    pilot = coarse and known is None
+    aim = _AIM * settle_s * (_PILOT if pilot else 1)
+    rung = 4 * iters
+    while rung < cap and (rung <= n or cost * rung < settle_s):
+        rung *= 4
+    aimed = iters * math.ceil(min(aim / (cost * iters), 1024))
+    following = min(max(aimed, 2 * n), rung)
+    return following, not pilot or following == cap
+
+
+def _time_iters(fn, iters, settle_s=0.5, agree_on=None, key=None):
     """Seconds attributable to `iters` loop iterations alone.
 
     `fn(n, salt)` must run `n` loop iterations and fold `salt` into its
     input. Times runs at n and 2n and returns the difference, so fixed
     per-call overhead cancels instead of polluting the throughput number.
 
-    The lengths n are iters * 4**k, tried in turn up to iters * 1024 until
-    a step's median difference reaches `settle_s`, as in the reference.
-    Unlike it, after the first step (n = iters, median m > 0) the timer
-    skips every length whose predicted median, m / iters per iteration,
-    falls below _JUMP_SHARE of settle_s: with a cost linear in n it
-    accepts the reference's n and returns the reference's seconds.
+    The first step runs at n = iters; a step whose median difference
+    reaches `settle_s` is accepted, as in the reference, and so is one at
+    the cap, iters * 1024, unless its median is under settle_s / 2 (then
+    it raises). Unlike the reference, which goes on at 4n, the timer goes
+    on at the least multiple of iters whose median a measured cost per
+    iteration predicts at _AIM times settle_s (``_next_length``), so the
+    label rests on a difference just over settle_s, not on one up to four
+    times it. That length is never past the least iters * 4**k predicted
+    at settle_s: with a cost linear in n the timer accepts a multiple of
+    iters no larger than the reference's n and returns the reference's
+    seconds. A step too short to measure its cost closely (under _PILOT
+    of settle_s) aims from the last cost accepted under `key`, a hashable
+    that names the work of one iteration on one device; with no `key` or
+    none accepted yet, a pilot step at _PILOT of that aim comes first.
 
     When `fn` runs collectives, every rank of the process group must run
     the same sequence of n: `agree_on` (the device of the ranks'
     collectives) makes every calibration step judge the largest median
     difference of all ranks, agreed outside the timed runs, and all ranks
-    return that time; the skip is judged from that agreed median too.
+    return that time; each next length, and the cost kept under `key`,
+    comes from that agreed median too.
 
     Raises RuntimeError when the difference is not measurable (jitter or
     caching swamped it); callers must treat that as probe failure, not as
     infinite throughput.
 
-    Records a ``timer`` span (``iterations_run``: every loop iteration fn
-    was asked for, the warm-up's included; ``iterations_label``: those
-    of the step the result rests on, 0 when it raises;
-    ``rungs_skipped``: the lengths skipped), a ``timer.step`` span per
-    calibration step (``n``, the three ``differences`` in the order run,
-    ``accepted``, and ``jumped`` on the step that follows a skip) and a
-    ``timer.run`` span per run of fn, from its call to the fetch's return
-    (``n``, ``salt``, ``role``: warm, n or 2n). The enclosing ``probe``
-    span names the probe in ``tpufd_timer_iterations_total`` and
+    Records a ``timer`` span (``settle_s``; ``iterations_run``: every
+    loop iteration fn was asked for, the warm-up's included;
+    ``iterations_label``: those of the step the result rests on, 0 when
+    it raises), a ``timer.step`` span per calibration step (``n``, the
+    three ``differences`` in the order run, ``accepted``, and ``jumped``
+    on the first step aimed at settle_s) and a ``timer.run`` span per run
+    of fn, from its call to the fetch's return (``n``, ``salt``,
+    ``role``: warm, n or 2n). The enclosing ``probe`` span names the
+    probe in ``tpufd_timer_iterations_total`` and
     ``tpufd_timer_jumps_total``.
     """
     recorder = spans.default_recorder()
@@ -201,7 +252,7 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
     probe = (request.attrs.get("probe", "")
              if request is not None and request.name == "probe" else "")
     warmed = False
-    iterations_run = iterations_label = rungs_skipped = 0
+    iterations_run = iterations_label = 0
     jumped_to = jump_outcome = None
 
     def once(n, role):
@@ -220,7 +271,7 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
             warmed = True
         return once(n, role)
 
-    with recorder.span("timer") as timer:
+    with recorder.span("timer", settle_s=settle_s) as timer:
         try:
             # Calibrate on the DIFFERENTIAL, not single-run wall time, and
             # judge every step by the median of 3 pairs: a single pair can
@@ -245,15 +296,11 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
                                     "unmeasurable" if ended else "climbed")
                 if ended:
                     break
-                per_iter = median / iters if n == iters else 0.0
-                n *= 4
-                # The first step's cost per iteration predicts each
-                # length's median: skip those that fall short.
-                while (per_iter > 0 and n < iters * 1024
-                       and per_iter * n < _JUMP_SHARE * settle_s):
-                    n *= 4
-                    rungs_skipped += 1
-                    jumped_to = n
+                n_next, aimed = _next_length(n, median, iters, settle_s,
+                                             _accepted_cost.get(key))
+                if aimed and jumped_to is None:
+                    jumped_to = n_next
+                n = n_next
             seconds_for_n = median
             if seconds_for_n < settle_s / 2:
                 # Hitting the calibration cap with the diff still below the
@@ -265,11 +312,12 @@ def _time_iters(fn, iters, settle_s=0.5, agree_on=None):
                     f"{seconds_for_n:.2g}s at {n} iterations); not "
                     f"reporting a throughput")
             iterations_label = n
+            if key is not None:
+                _accepted_cost[key] = seconds_for_n / n
             return seconds_for_n * iters / n  # normalize back to `iters`
         finally:
             timer.attrs["iterations_run"] = iterations_run
             timer.attrs["iterations_label"] = iterations_label
-            timer.attrs["rungs_skipped"] = rungs_skipped
             _count_iterations(probe, iterations_run, iterations_label)
             _count_jump(probe, jump_outcome)
 
@@ -292,16 +340,17 @@ _JUMP_OUTCOMES = ("accepted", "climbed", "unmeasurable")
 
 
 def _count_jump(probe, outcome):
-    """Counts one timer call that skipped lengths under the `outcome` of
-    the step it jumped to (None: it skipped none, or that step never
-    ended); every outcome's series is kept, at 0 until it happens."""
+    """Counts one timer call that aimed a step at settle_s under the
+    `outcome` of its first such step (None: it aimed none, or that step
+    never ended); every outcome's series is kept, at 0 until it
+    happens."""
     reg = metrics.default_registry()
-    help_text = ("Differential timer calls that skipped calibration "
-                 "lengths after their first step, per probe, by what the "
-                 "step jumped to did: outcome=accepted the label rests on "
-                 "it, outcome=climbed the timer went on to longer runs, "
-                 "outcome=unmeasurable it was the last length and the "
-                 "timer raised.")
+    help_text = ("Differential timer calls that aimed a calibration "
+                 "length at the settle threshold from a measured cost per "
+                 "iteration, per probe, by what the first such step did: "
+                 "outcome=accepted the label rests on it, outcome=climbed "
+                 "the timer went on to longer runs, outcome=unmeasurable "
+                 "it was the last length and the timer raised.")
     for name in _JUMP_OUTCOMES:
         reg.counter("tpufd_timer_jumps_total", help_text,
                     labels={"probe": probe, "outcome": name}).inc(
@@ -363,7 +412,8 @@ def matmul_tflops(device=None, size=4096, iters=8):
     with spans.span("probe", probe="matmul-tflops"):
         device = resolve_device(device)
         seconds = _time_iters(_matmul_probe_fn(device, size), iters,
-                              settle_s=_settle_s(device))
+                              settle_s=_settle_s(device),
+                              key=("matmul-tflops", device, size))
         return 2.0 * size * size * size * iters / seconds / 1e12
 
 
@@ -389,7 +439,8 @@ def hbm_gbps(device=None, mib=512, iters=16):
         device = resolve_device(device)
         n = mib * 1024 * 1024 // 2  # bf16 elements
         seconds = _time_iters(_stream_probe_fn(device, mib), iters,
-                              settle_s=_settle_s(device))
+                              settle_s=_settle_s(device),
+                              key=("hbm-gbps", device, mib))
         return 2.0 * n * 2 * iters / seconds / 1e9  # read + write per iter
 
 
@@ -416,7 +467,8 @@ def dma_copy_gbps(device=None, mib=256, iters=16, chunks=2):
         device = resolve_device(device)
         rows, cols = _dma_copy_shape(mib, chunks)
         seconds = _time_iters(_dma_copy_probe_fn(device, mib, chunks),
-                              iters, settle_s=_settle_s(device))
+                              iters, settle_s=_settle_s(device),
+                              key=("dma-copy-gbps", device, mib, chunks))
         return 2.0 * rows * cols * 2 * iters / seconds / 1e9
 
 
@@ -450,7 +502,8 @@ def allreduce_gbps(mesh, mib=64, iters=8):
         group = mesh.get_group(axis)
         seconds = _time_iters(
             lambda it, salt: _allreduce_loop(x * salt, it, group), iters,
-            settle_s=_settle_s(device), agree_on=device)
+            settle_s=_settle_s(device), agree_on=device,
+            key=("allreduce-gbps", device, mib, k))
         bytes_moved = 2.0 * n * 2 * (k - 1) / k * iters
         return bytes_moved / seconds / 1e9
 
